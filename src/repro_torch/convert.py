@@ -1,0 +1,37 @@
+"""Turn the JAX package's state, given as numpy arrays, into the port's tensors.
+
+Both packages then compute on the same inputs: the stencil's ``src`` and
+star weights, and the LB step's ``(f, phase, vel)``.  Layouts are the same in
+both packages ((nz, ny, nx), SoA pdfs), so conversion only changes the
+container and the device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+
+
+def to_tensor(a, device: str | torch.device | None = None) -> torch.Tensor:
+    """A contiguous tensor of ``a``'s values and dtype on ``device``.
+
+    bfloat16 (``ml_dtypes``) arrays, which :func:`torch.from_numpy` refuses,
+    go through float32, which holds every bfloat16 value exactly.
+    """
+    a = np.array(a, order="C")  # a writable copy: JAX's arrays are read-only
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(resolve_device(device))
+
+
+def stencil_state(src, weights, device: str | torch.device | None = None):
+    """``(src, weights)`` of the stencil as tensors on ``device``."""
+    return to_tensor(src, device), to_tensor(weights, device)
+
+
+def lbm_state(f, phase, vel, device: str | torch.device | None = None):
+    """``(f, phase, vel)`` of the LB step as tensors on ``device``."""
+    return tuple(to_tensor(a, device) for a in (f, phase, vel))

@@ -1,0 +1,59 @@
+"""GPU lowering of :class:`~repro_torch.frontend.ir.AccessIR`.
+
+:func:`lower_gpu` — element-granular IR -> :class:`repro_torch.core.address.KernelSpec`,
+the input of the paper §III GPU pipeline.  The translation is positional and
+arithmetic-free.  Copy of ``repro_torch.frontend.lower.lower_gpu``; the TPU lowering
+and the KernelSpec adapter are not part of the port.
+"""
+from __future__ import annotations
+
+from ..core.address import Access, Field, KernelSpec, LaunchConfig
+from .ir import AccessIR
+
+
+def _pad3(t: tuple[int, ...], fill: int) -> tuple[int, int, int]:
+    if len(t) > 3:
+        raise ValueError(f"GPU lowering supports at most 3 dims, got {t}")
+    return tuple(t) + (fill,) * (3 - len(t))
+
+
+def lower_gpu(ir: AccessIR) -> KernelSpec:
+    """Lower an element-granular IR to the GPU estimator's KernelSpec."""
+    if ir.granularity != "element":
+        raise ValueError(
+            f"IR {ir.name!r} is block-granular (Pallas-traced); only "
+            "element-granular IR lowers to the GPU estimator"
+        )
+    if not ir.block:
+        raise ValueError(f"IR {ir.name!r}: GPU lowering needs a launch block")
+    fields = {
+        f.name: Field(
+            name=f.name,
+            shape=_pad3(f.shape, 1),
+            element_size=f.element_size,
+            alignment=f.alignment,
+            components=f.components,
+        )
+        for f in ir.fields
+    }
+    accesses = tuple(
+        Access(
+            field=fields[a.field],
+            coeffs=_pad3(a.coeffs[0], 0),
+            offset=a.offset[0],
+            is_store=a.is_store,
+        )
+        for a in ir.accesses
+    )
+    return KernelSpec(
+        name=ir.name,
+        fields=tuple(fields.values()),
+        accesses=accesses,
+        launch=LaunchConfig(
+            block=_pad3(ir.block, 1), threads=_pad3(ir.iter_shape, 1)
+        ),
+        lups_per_thread=ir.lups_per_iter,
+        flops_per_lup=ir.flops_per_iter,
+        regs_per_thread=ir.regs_per_thread,
+        meta=dict(ir.meta),
+    )

@@ -1,0 +1,73 @@
+"""Entry point of the LB step, with estimator-guided block selection.
+
+Counterpart of ``repro.kernels.lbm_d3q15.ops``.  The port ranks the paper's
+49 thread blocks of 512 threads (§IV.B) with the §III GPU estimator on the
+H100 model, and runs the winner with the CUDA kernel.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ...core.appspec import lbm_config_space, lbm_d3q15
+from ...core.estimator import VolumeEstimate, estimate
+from ...core.machine import H100_SXM, GPUMachine
+from ...core.model import Prediction, predict
+from .kernel import lbm_d3q15_cuda
+
+
+def config_space(shape: tuple[int, int, int], dtype=torch.float64) -> list[dict]:
+    """The paper's 49 LBM configurations: blocks of 512 threads, no fold.
+    Each dict holds the estimator's arguments: ``block``, ``fold``, ``grid``
+    (x, y, z) and ``element_size``."""
+    nz, ny, nx = shape
+    return [
+        {**cfg, "grid": (nx, ny, nz), "element_size": dtype.itemsize}
+        for cfg in lbm_config_space()
+    ]
+
+
+@functools.cache
+def rank_configs(
+    shape: tuple[int, int, int], dtype: torch.dtype, machine: GPUMachine = H100_SXM
+) -> tuple[tuple[dict, VolumeEstimate, Prediction], ...]:
+    """Estimate and predict every configuration of :func:`config_space`, in
+    space order; cached per (shape, dtype, machine)."""
+    out = []
+    for cfg in config_space(shape, dtype):
+        spec = lbm_d3q15(**cfg)
+        est = estimate(spec, machine)
+        out.append((cfg, est, predict(spec, est, machine)))
+    return tuple(out)
+
+
+def select_block(
+    shape: tuple[int, int, int],
+    dtype: torch.dtype = torch.float64,
+    machine: GPUMachine = H100_SXM,
+) -> tuple[dict, Prediction]:
+    """The configuration with the highest predicted GLup/s; ties go to the
+    first in space order."""
+    ranked = rank_configs(tuple(shape), dtype, machine)
+    cfg, _, pred = max(ranked, key=lambda item: item[2].glups)  # first of equals
+    return cfg, pred
+
+
+def lbm_step(
+    f: torch.Tensor,
+    phase: torch.Tensor,
+    vel: torch.Tensor,
+    tau: float = 0.8,
+    width: float = 4.0,
+    block: tuple[int, int, int] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One LB interface-tracking step; picks the block with the estimator
+    when ``block`` is not given.  Returns ``(f_out, phase_out)``."""
+    if block is None:
+        cfg, _ = select_block(tuple(f.shape[1:]), f.dtype)
+        block = cfg["block"]
+    return lbm_d3q15_cuda(f, phase, vel, tau=tau, width=width, block=tuple(block))
+
+
+__all__ = ["lbm_step", "select_block", "rank_configs", "config_space"]

@@ -1,0 +1,80 @@
+"""Entry point of the star stencil, with estimator-guided block selection.
+
+Counterpart of ``repro.kernels.stencil25.ops``.  Where the JAX package ranks
+Pallas (bz, by) tiles with its TPU estimator, the port ranks the paper's own
+(block, fold) thread-block space with the §III GPU estimator on the H100
+model, and runs the winner with the CUDA kernel.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ...core.appspec import star3d, stencil_config_space
+from ...core.estimator import VolumeEstimate, estimate
+from ...core.machine import H100_SXM, GPUMachine
+from ...core.model import Prediction, predict
+from .kernel import stencil25_cuda
+
+
+def config_space(shape: tuple[int, int, int], r: int = 4, dtype=torch.float64) -> list[dict]:
+    """The paper's 162 (block, fold) configurations (§IV.B), minus those whose
+    fold does not divide the grid.  Each dict holds the estimator's arguments:
+    ``block``, ``fold``, ``r``, ``grid`` (x, y, z) and ``element_size``."""
+    nz, ny, nx = shape
+    grid = (nx, ny, nz)
+    return [
+        {**cfg, "r": r, "grid": grid, "element_size": dtype.itemsize}
+        for cfg in stencil_config_space()
+        if not any(g % f for g, f in zip(grid, cfg["fold"]))
+    ]
+
+
+@functools.cache
+def rank_configs(
+    shape: tuple[int, int, int], r: int, dtype: torch.dtype, machine: GPUMachine = H100_SXM
+) -> tuple[tuple[dict, VolumeEstimate, Prediction], ...]:
+    """Estimate and predict every configuration of :func:`config_space`, in
+    space order.  Cached per (shape, r, dtype, machine): one ranking of the
+    full space at the paper's grid takes seconds of CPU."""
+    out = []
+    for cfg in config_space(shape, r, dtype):
+        spec = star3d(**cfg)
+        est = estimate(spec, machine)
+        out.append((cfg, est, predict(spec, est, machine)))
+    return tuple(out)
+
+
+def select_block(
+    shape: tuple[int, int, int],
+    r: int = 4,
+    dtype: torch.dtype = torch.float64,
+    machine: GPUMachine = H100_SXM,
+) -> tuple[dict, Prediction]:
+    """The configuration with the highest predicted GLup/s (the paper's
+    selection problem); ties go to the first in space order."""
+    ranked = rank_configs(tuple(shape), r, dtype, machine)
+    if not ranked:
+        raise ValueError(f"no configuration's fold divides grid {shape}")
+    cfg, _, pred = max(ranked, key=lambda item: item[2].glups)  # first of equals
+    return cfg, pred
+
+
+def stencil25(
+    src: torch.Tensor,
+    r: int = 4,
+    block: tuple[int, int, int] | None = None,
+    fold: tuple[int, int, int] | None = None,
+) -> torch.Tensor:
+    """Range-r 3D star stencil of ``src`` (nz, ny, nx); picks (block, fold)
+    with the estimator when ``block`` is not given."""
+    if block is None:
+        if fold is not None:
+            raise ValueError("pass fold together with block, or neither")
+        cfg, _ = select_block(tuple(src.shape), r, src.dtype)
+        block, fold = cfg["block"], cfg["fold"]
+    return stencil25_cuda(src, r=r, block=tuple(block), fold=tuple(fold or (1, 1, 1)))
+
+
+__all__ = ["stencil25", "select_block", "rank_configs", "config_space"]

@@ -1,0 +1,85 @@
+"""The port stands alone and never falls back silently.
+
+* Importing every ``repro_torch`` module, and ``chip_smoke.py``, loads no
+  ``jax`` and nothing of ``repro`` (checked in a fresh interpreter).
+* Without CUDA, the state-creating functions raise unless asked for the CPU,
+  ``chip_smoke.py`` exits non-zero and prints no result, and the CPU path
+  leaves the kernels' launch counters alone.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.lbm_d3q15 import init_fields, lbm_d3q15_cuda, lbm_step
+from repro_torch.kernels.stencil25 import stencil25, stencil25_cuda
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"), str(ROOT)])
+    return env
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_repro():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], env=_env(), cwd=ROOT,
+        capture_output=True, text=True, timeout=120, check=True,
+    )
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    for name in ("repro_torch.convert", "repro_torch._build",
+                 "repro_torch.kernels.stencil25.kernel", "repro_torch.kernels.lbm_d3q15.ops",
+                 "repro_torch.core.estimator", "repro_torch.frontend.lower"):
+        assert name in res["modules"]
+
+
+def test_state_defaults_to_cuda():
+    if torch.cuda.is_available():
+        assert init_fields((4, 4, 8))[0].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_fields((4, 4, 8))
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cpu_path_leaves_launch_counters_alone():
+    before = (stencil25_cuda.launches, lbm_d3q15_cuda.launches)
+    stencil25(torch.ones((8, 8, 16)), block=(16, 4, 2), fold=(1, 1, 1))
+    f, phase, vel = init_fields((4, 4, 8), device="cpu")
+    lbm_step(f, phase, vel, block=(8, 4, 4))
+    assert (stencil25_cuda.launches, lbm_d3q15_cuda.launches) == before
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: chip_smoke.py would run")
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], env=_env(), cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
