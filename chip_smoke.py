@@ -3,21 +3,32 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the paper's loop: the §III estimator picks the
-launch configuration from the address expressions alone, then the chosen
-hand-written CUDA kernel runs.  Phases, one JSON line each:
+Drives the port's main paths.  The paper's loop: the §III estimator picks
+the launch configuration from the address expressions alone, then the
+chosen hand-written CUDA kernel runs.  Beside it, GQA flash attention at
+Qwen2.5-14B's width and the chunked RWKV6 WKV at RWKV6-1.6B's width, each
+with the tile or chunk fixed by measurement.  Phases, one JSON line each:
 
 1. device  — the card, its count, and ``nvidia-smi``'s name and power limit;
-2. build   — both kernels built from ``src/repro_torch/csrc`` (one ``nvcc``
-   each, started together), with build seconds and registers per thread of
-   every instantiation beside the IR's assumption;
-3. check   — every kernel against its plain PyTorch version on a small grid:
+2. build   — the four kernels built from ``src/repro_torch/csrc`` (one
+   ``nvcc`` each, started together), with build seconds and registers per
+   thread of every instantiation (beside the IR's assumption for the two
+   paper kernels);
+3. check   — every kernel against its plain PyTorch version at small sizes:
    all 162 stencil and all 49 LBM configurations in f64, a few in f32/bf16;
+   every compiled flash (tile, head dim, dtype) at four head groupings,
+   causal and not; every compiled WKV (chunk, K), output and final state.
+   Limits: max abs error f64 1e-10, f32 3e-5, bf16 4e-2, and elementwise
+   ``|a - b| <= atol + rtol |b|`` for bf16 attention (``ATTN_RULE``) and
+   WKV (``WKV_RULE``);
 4. main    — ``stencil25(src)`` at (512, 512, 640) f64 and ``lbm_step`` at
-   (256, 256, 512) f64, each with ``block=None``; launch counts are zeroed
-   just before and read just after.  Then kernel, plain-version and
-   ``copy_`` times from CUDA events, measured against predicted GLup/s and
-   the byte bound.
+   (256, 256, 512) f64, each with ``block=None``; then ``flash_attention``
+   at (B, Hq, Hkv, S, D) = (1, 40, 8, 4096, 128) bf16 causal and ``wkv`` at
+   (BH, S, K) = (64, 4096, 64) f32, with ``block_q/block_kv/chunk = None``.
+   Launch counts are zeroed just before each path and read just after.
+   Then kernel, plain-version and yardstick times from CUDA events (for
+   the new paths, every compiled tile or chunk at the main shape), each
+   against its bound.
 
 Then the ``nvidia-smi`` line, a ``kernels`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line, on
@@ -26,6 +37,7 @@ any failure and where CUDA or the port is missing.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -40,13 +52,18 @@ sys.path.insert(0, str(ROOT / "src"))
 # Fails here, before any result, where the port is not beside this script.
 from repro_torch import _build  # noqa: E402
 from repro_torch.core import appspec  # noqa: E402
+from repro_torch.kernels import attention  # noqa: E402
 from repro_torch.kernels import lbm_d3q15 as lbm  # noqa: E402
 from repro_torch.kernels import stencil25  # noqa: E402
+from repro_torch.kernels import wkv  # noqa: E402
+from repro_torch.kernels.attention import kernel as attn_kernel  # noqa: E402
 from repro_torch.kernels.lbm_d3q15 import kernel as lbm_kernel  # noqa: E402
 from repro_torch.kernels.stencil25 import kernel as st_kernel  # noqa: E402
+from repro_torch.kernels.wkv import kernel as wkv_kernel  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}  # H100 SXM, non-tensor
+# H100 SXM, dense: f64 and f32 outside the tensor cores, bf16 on them
+PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12, torch.bfloat16: 989e12}
 STENCIL_SHAPE = (512, 512, 640)  # (nz, ny, nx) = paper grid (640, 512, 512)
 LBM_SHAPE = (256, 256, 512)  # (nz, ny, nx) = paper grid (512, 256, 256)
 CHECK_SHAPE = (64, 64, 128)
@@ -55,6 +72,29 @@ TOL = {torch.float64: 1e-10, torch.float32: 3e-5, torch.bfloat16: 4e-2}
 STENCIL_BYTES_PER_CELL = 16  # f64: src read once, dst written once
 LBM_BYTES_PER_CELL = 280  # f64: 15 pdfs + phase + 3 vel read, 15 pdfs + phase written
 REPS = 20
+ATTN_SHAPE = (1, 40, 8, 4096, 128)  # (B, Hq, Hkv, S, D): one layer of configs/qwen2_5_14b.py
+ATTN_CHECK_HEADS = ((4, 4), (4, 2), (8, 1), (10, 2))
+ATTN_CHECK_SEQ = 256
+WKV_SHAPE = (64, 4096, 64)  # (BH, S, K): configs/rwkv6_1_6b.py, 32 heads of 64 at batch 2
+WKV_CHECK_SHAPE = (3, 128)  # (BH, S)
+# elementwise rules |a - b| <= atol + rtol |b|, as (atol, rtol).  bf16
+# attention on top of its max abs error: one bf16 ulp is at most 2^-7 |b|, so
+# the rule admits the last-bit disagreement of two f32 results each rounded
+# to bf16, where 4e-2 alone is as large as a typical output at S = 4096.
+# WKV: the JAX test's rtol = atol = 5e-4.
+ATTN_RULE = (2e-3, 1e-2)
+WKV_RULE = (5e-4, 5e-4)
+WKV_FLOPS_PER_TOKEN = 6  # times K^2 per head: the stepwise recurrence
+KERNELS = {  # name: (launch counter, CUDA source, TPU kernel it replaces)
+    "stencil25": (st_kernel.stencil25_cuda, "src/repro_torch/csrc/stencil25.cu",
+                  "src/repro/kernels/stencil25/kernel.py:24"),
+    "lbm_d3q15": (lbm_kernel.lbm_d3q15_cuda, "src/repro_torch/csrc/lbm_d3q15.cu",
+                  "src/repro/kernels/lbm_d3q15/kernel.py:37"),
+    "flash_attention": (attn_kernel.flash_attention_cuda, "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/attention/kernel.py:21"),
+    "wkv": (wkv_kernel.wkv_cuda, "src/repro_torch/csrc/wkv.cu",
+            "src/repro/kernels/wkv/kernel.py:25"),
+}
 
 
 def emit(obj: dict) -> None:
@@ -85,6 +125,33 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def rule_ratio(a: torch.Tensor, b: torch.Tensor, rule: tuple[float, float]) -> float:
+    """max |a - b| / (atol + rtol |b|) over the elements: at most 1 where the
+    elementwise rule holds."""
+    atol, rtol = rule
+    a, b = a.float(), b.float()
+    return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+
+def rule_text(rule: tuple[float, float]) -> str:
+    return f"|a-b| <= {rule[0]} + {rule[1]}|b|"
+
+
+def holds(res: dict) -> bool:
+    """Every limit that a result carries: ``tol`` on its max abs error and
+    ``max_ratio`` <= 1 for its elementwise rule (NaN fails both)."""
+    return res["max_abs_err"] <= res.get("tol", math.inf) and res.get("max_ratio", 0.0) <= 1.0
+
+
+def zero_counts() -> None:
+    for counter, _, _ in KERNELS.values():
+        counter.launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    return {name: counter.launches for name, (counter, _, _) in KERNELS.items()}
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -103,7 +170,7 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    libs = _build.build(("stencil25", "lbm_d3q15"))
+    libs = _build.build(tuple(KERNELS))
     wall = time.perf_counter() - t0
     regs = {}
     for dtype in (torch.float64, torch.float32, torch.bfloat16):
@@ -111,6 +178,14 @@ def phase_build() -> None:
             regs[f"stencil25 {str(dtype)[6:]} fold{fold}"] = st_kernel.kernel_attributes(dtype, fold)
     for dtype in (torch.float64, torch.float32):
         regs[f"lbm_d3q15 {str(dtype)[6:]}"] = lbm_kernel.kernel_attributes(dtype)
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in attn_kernel.HEAD_DIMS:
+            for bq, bkv in attn_kernel.TILES:  # raises where the source lacks a listed tile
+                regs[f"flash_attention {str(dtype)[6:]} d{d} {bq}x{bkv}"] = \
+                    attn_kernel.kernel_attributes(dtype, d, bq, bkv)
+    for chunk in wkv_kernel.CHUNKS:
+        for kd in wkv_kernel.HEAD_DIMS:
+            regs[f"wkv L{chunk} K{kd}"] = wkv_kernel.kernel_attributes(chunk, kd)
     for name, attrs in regs.items():
         if attrs["local_bytes"]:
             print(f"chip_smoke: {name} spills {attrs['local_bytes']} B/thread", file=sys.stderr)
@@ -151,27 +226,82 @@ def phase_check() -> None:
         torch.cuda.synchronize()
         res[f"lbm_d3q15 {str(dtype)[6:]}"] = {"configs": len(cfgs), "max_abs_err": err,
                                               "tol": TOL[dtype]}
+    res.update(check_attention(gen))
+    res.update(check_wkv(gen))
     emit({"phase": "check", "shape": CHECK_SHAPE, "results": res})
-    bad = {k: v for k, v in res.items() if not v["max_abs_err"] <= v["tol"]}
+    bad = {k: v for k, v in res.items() if not holds(v)}
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
 
 
-def bound_ms(cells: int, bytes_per_cell: int, flops_per_cell: float, dtype) -> tuple[float, str]:
-    t_bytes = cells * bytes_per_cell / HBM_BYTES_PER_S
-    t_ops = cells * flops_per_cell / PEAK_FLOPS[dtype]
+def check_attention(gen: torch.Generator) -> dict:
+    """Every compiled (tile, head dim, dtype), at four head groupings, causal
+    and not, against ``mha_plain`` at S = 256; bf16 also by ``ATTN_RULE``."""
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in attn_kernel.HEAD_DIMS:
+            err = ratio = 0.0
+            for hq, hkv in ATTN_CHECK_HEADS:
+                q, k, v = (torch.randn((1, h, ATTN_CHECK_SEQ, d), generator=gen, device="cuda").to(dtype)
+                           for h in (hq, hkv, hkv))
+                for causal in (True, False):
+                    plain = attention.mha_plain(q, k, v, causal)
+                    for bq, bkv in attn_kernel.TILES:
+                        out = attn_kernel.flash_attention_cuda(q, k, v, causal, bq, bkv)
+                        err = max(err, max_err(out, plain))
+                        ratio = max(ratio, rule_ratio(out, plain, ATTN_RULE))
+            torch.cuda.synchronize()
+            res[f"flash_attention {str(dtype)[6:]} d{d}"] = {
+                "configs": len(attn_kernel.TILES) * len(ATTN_CHECK_HEADS) * 2, "max_abs_err": err,
+                "tol": TOL[dtype]}
+            if dtype == torch.bfloat16:
+                res[f"flash_attention {str(dtype)[6:]} d{d}"].update(max_ratio=ratio, rule=rule_text(ATTN_RULE))
+    return res
+
+
+def wkv_inputs(gen: torch.Generator, bh: int, seq: int, kd: int) -> tuple[torch.Tensor, ...]:
+    """r, k, v ~ N(0, 1), wlog = -exp(N(0, 1) clipped to [-8, 4]), u ~ N(0, 1):
+    the distributions of the JAX package's WKV test."""
+    r, k, v = (torch.randn((bh, seq, kd), generator=gen, device="cuda") for _ in range(3))
+    wlog = -torch.exp(torch.randn((bh, seq, kd), generator=gen, device="cuda").clamp(-8, 4))
+    return r, k, v, wlog, torch.randn((kd,), generator=gen, device="cuda")
+
+
+def check_wkv(gen: torch.Generator) -> dict:
+    """Every compiled (chunk, K), output and final state, against
+    ``wkv_plain`` by the elementwise rule."""
+    res = {}
+    bh, seq = WKV_CHECK_SHAPE
+    for kd in wkv_kernel.HEAD_DIMS:
+        inputs = wkv_inputs(gen, bh, seq, kd)
+        plain_out, plain_state = wkv.wkv_plain(*inputs)
+        for chunk in wkv_kernel.CHUNKS:
+            out, state = wkv_kernel.wkv_cuda(*inputs, chunk=chunk)
+            res[f"wkv L{chunk} K{kd}"] = {
+                "max_abs_err": max(max_err(out, plain_out), max_err(state, plain_state)),
+                "max_ratio": max(rule_ratio(out, plain_out, WKV_RULE),
+                                 rule_ratio(state, plain_state, WKV_RULE)),
+                "rule": rule_text(WKV_RULE)}
+    return res
+
+
+def bound_ms(n_bytes: float, flops: float, dtype) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate for ``dtype``."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_main() -> list[dict]:
+def phase_main_paper() -> list[dict]:
+    """The paper's loop: stencil25 and three LBM steps, block=None."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     src = torch.randn(STENCIL_SHAPE, generator=gen, device="cuda", dtype=torch.float64)
     f0, phase0, vel = lbm.init_fields(LBM_SHAPE, seed=0, dtype=torch.float64)
     torch.cuda.synchronize()
 
     # --- the main path, through the entry points a user calls -------------
-    stencil25.stencil25_cuda.launches = 0
-    lbm.lbm_d3q15_cuda.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     dst = stencil25.stencil25(src)  # block=None: the estimator picks it
     f, phase = f0, phase0
@@ -179,9 +309,8 @@ def phase_main() -> list[dict]:
         f, phase = lbm.lbm_step(f, phase, vel)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = {"stencil25": stencil25.stencil25_cuda.launches,
-                "lbm_d3q15": lbm.lbm_d3q15_cuda.launches}
-    if not all(launches.values()):
+    launches = read_counts()
+    if not (launches["stencil25"] and launches["lbm_d3q15"]):
         fail(f"a kernel of the main path never launched: {launches}")
 
     out = []
@@ -196,7 +325,7 @@ def phase_main() -> list[dict]:
     ms = time_ms(lambda: stencil25.stencil25_cuda(src, 4, cfg["block"], cfg["fold"]))
     plain_ms = time_ms(lambda: stencil25.stencil25_plain(src, 4), reps=5, warmup=1)
     copy_ms = time_ms(lambda: dst.copy_(src))
-    b_ms, b_by = bound_ms(cells, STENCIL_BYTES_PER_CELL, 2 * 25 - 1, torch.float64)
+    b_ms, b_by = bound_ms(cells * STENCIL_BYTES_PER_CELL, cells * (2 * 25 - 1), torch.float64)
     out.append({"name": "stencil25", "shape": STENCIL_SHAPE, "dtype": "float64",
                 "block": cfg["block"], "fold": cfg["fold"], "predicted_glups": pred.glups,
                 "predicted_limiter": pred.limiter, "ms": ms, "measured_glups": cells / ms / 1e6,
@@ -218,18 +347,104 @@ def phase_main() -> list[dict]:
     plain_ms = time_ms(lambda: lbm.lbm_step_plain(f0, phase0, vel), reps=5, warmup=1)
     yard = torch.empty_like(f0)
     copy_ms = time_ms(lambda: yard.copy_(f0))
-    b_ms, b_by = bound_ms(cells, LBM_BYTES_PER_CELL, 350.0, torch.float64)
+    b_ms, b_by = bound_ms(cells * LBM_BYTES_PER_CELL, cells * 350.0, torch.float64)
     out.append({"name": "lbm_d3q15", "shape": LBM_SHAPE, "dtype": "float64",
                 "block": lcfg["block"], "fold": lcfg["fold"], "predicted_glups": lpred.glups,
                 "predicted_limiter": lpred.limiter, "ms": ms, "measured_glups": cells / ms / 1e6,
                 "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms,
                 "copy_ms": copy_ms, "copy_bytes": f0.numel() * 8, "steps": LBM_STEPS,
                 "max_abs_err": lerr, "launches": launches["lbm_d3q15"]})
-    emit({"phase": "main", "seconds": main_s, "launches": launches, "results": out})
+    emit({"phase": "main", "path": "paper", "seconds": main_s, "launches": launches, "results": out})
     bad = [r["name"] for r in out if not r["max_abs_err"] <= TOL[torch.float64]]
     if bad:
         fail(f"main-path outputs disagree with the plain versions: {bad}")
     return out
+
+
+def phase_main_attention() -> dict:
+    """``flash_attention(q, k, v)``, causal, tile from ``select_blocks``, at
+    one layer of Qwen2.5-14B in bf16."""
+    b, hq, hkv, seq, d = ATTN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn((b, h, seq, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = read_counts()
+    if not launches["flash_attention"]:
+        fail(f"flash_attention never launched on its main path: {launches}")
+    if out.shape != q.shape or out.dtype != q.dtype or not bool(torch.isfinite(out).all()):
+        fail("attention output is not finite or has the wrong shape or dtype")
+    plain = attention.mha_plain(q, k, v)
+    err, ratio = max_err(out, plain), rule_ratio(out, plain, ATTN_RULE)
+
+    def sdpa() -> torch.Tensor:
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    # what the rule reads for a result of lower precision (bf16 P on the tensor cores)
+    library_ratio = rule_ratio(sdpa(), plain, ATTN_RULE)
+    del plain
+    tile = attention.select_blocks(b, hq, hkv, seq, d, q.dtype)
+    tiles_ms = {f"{bq}x{bkv}": time_ms(lambda bq=bq, bkv=bkv: attn_kernel.flash_attention_cuda(q, k, v, True, bq, bkv))
+                for bq, bkv in attention.config_space(b, hq, hkv, seq, d, q.dtype)}
+    plain_ms = time_ms(lambda: attention.mha_plain(q, k, v), reps=3, warmup=1)
+    sdpa_ms = time_ms(sdpa)
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+    flops = 4.0 * b * hq * d * seq * (seq + 1) / 2  # QK^T and PV over the unmasked pairs
+    b_ms, b_by = bound_ms(n_bytes, flops, q.dtype)
+    ms = tiles_ms[f"{tile[0]}x{tile[1]}"]
+    res = {"name": "flash_attention", "shape": ATTN_SHAPE, "dtype": "bfloat16", "causal": True,
+           "tile": tile, "ms": ms, "tflops": flops / ms / 1e9, "bound_ms": b_ms, "bound_by": b_by,
+           "plain_ms": plain_ms, "library_ms": sdpa_ms, "tiles_ms": tiles_ms, "max_abs_err": err,
+           "tol": TOL[torch.bfloat16], "max_ratio": ratio, "rule": rule_text(ATTN_RULE),
+           "library_ratio": library_ratio, "launches": launches["flash_attention"]}
+    emit({"phase": "main", "path": "attention", "seconds": main_s, "launches": launches, "results": [res]})
+    if not holds(res):
+        fail(f"flash_attention disagrees with mha_plain on its main path: error {err}, ratio {ratio}")
+    return res
+
+
+def phase_main_wkv() -> dict:
+    """``wkv(r, k, v, wlog, u)``, chunk from ``select_chunk``, at RWKV6-1.6B's
+    32 heads of 64 at batch 2, S = 4096, f32."""
+    bh, seq, kd = WKV_SHAPE
+    inputs = wkv_inputs(torch.Generator(device="cuda").manual_seed(4), bh, seq, kd)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out, state = wkv.wkv(*inputs)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = read_counts()
+    if not launches["wkv"]:
+        fail(f"wkv never launched on its main path: {launches}")
+    if not (bool(torch.isfinite(out).all()) and bool(torch.isfinite(state).all())):
+        fail("WKV output or state is not finite")
+    plain_out, plain_state = wkv.wkv_plain(*inputs)
+    err = max(max_err(out, plain_out), max_err(state, plain_state))
+    ratio = max(rule_ratio(out, plain_out, WKV_RULE), rule_ratio(state, plain_state, WKV_RULE))
+    del plain_out, plain_state
+    chunk = wkv.select_chunk(bh, seq, kd)
+    chunks_ms = {f"L{c}": time_ms(lambda c=c: wkv_kernel.wkv_cuda(*inputs, chunk=c))
+                 for c in wkv.config_space(bh, seq, kd)}
+    plain_ms = time_ms(lambda: wkv.wkv_plain(*inputs), reps=2, warmup=1)
+    # r, k, v, wlog read and out written once; u read and the final state written
+    n_bytes = 4.0 * (5 * bh * seq * kd + kd + bh * kd * kd)
+    flops = float(WKV_FLOPS_PER_TOKEN * kd * kd * bh * seq)
+    b_ms, b_by = bound_ms(n_bytes, flops, torch.float32)
+    ms = chunks_ms[f"L{chunk}"]
+    res = {"name": "wkv", "shape": WKV_SHAPE, "dtype": "float32", "chunk": chunk, "ms": ms,
+           "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms, "library_ms": None,
+           "chunks_ms": chunks_ms, "max_abs_err": err, "max_ratio": ratio,
+           "rule": rule_text(WKV_RULE), "launches": launches["wkv"]}
+    emit({"phase": "main", "path": "wkv", "seconds": main_s, "launches": launches, "results": [res]})
+    if not holds(res):
+        fail(f"wkv disagrees with wkv_plain on its main path: ratio {ratio}")
+    return res
 
 
 def main() -> int:
@@ -238,16 +453,15 @@ def main() -> int:
         return 1
     smi = phase_device()
     phase_build()
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' products in full f32
+    torch.backends.cudnn.allow_tf32 = False
     phase_check()
-    main_results = phase_main()
-    sources = {"stencil25": ("src/repro_torch/csrc/stencil25.cu",
-                             "src/repro/kernels/stencil25/kernel.py:24"),
-               "lbm_d3q15": ("src/repro_torch/csrc/lbm_d3q15.cu",
-                             "src/repro/kernels/lbm_d3q15/kernel.py:37")}
-    kernels = [{"name": r["name"], "route": "cuda", "source": sources[r["name"]][0],
-                "replaces": sources[r["name"]][1], "launches": r["launches"],
+    main_results = phase_main_paper() + [phase_main_attention(), phase_main_wkv()]
+    kernels = [{"name": r["name"], "route": "cuda", "source": KERNELS[r["name"]][1],
+                "replaces": KERNELS[r["name"]][2], "launches": r["launches"],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r.get("library_ms")}
                for r in main_results]
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -1,9 +1,10 @@
 """Turn the JAX package's state, given as numpy arrays, into the port's tensors.
 
 Both packages then compute on the same inputs: the stencil's ``src`` and
-star weights, and the LB step's ``(f, phase, vel)``.  Layouts are the same in
-both packages ((nz, ny, nx), SoA pdfs), so conversion only changes the
-container and the device.
+star weights, the LB step's ``(f, phase, vel)``, attention's ``(q, k, v)``
+and the WKV's ``(r, k, v, wlog, u)``.  Layouts are the same in both packages
+((nz, ny, nx), SoA pdfs, (B, H, S, D), (BH, S, K)), so conversion only
+changes the container and the device.
 """
 from __future__ import annotations
 
@@ -35,3 +36,13 @@ def stencil_state(src, weights, device: str | torch.device | None = None):
 def lbm_state(f, phase, vel, device: str | torch.device | None = None):
     """``(f, phase, vel)`` of the LB step as tensors on ``device``."""
     return tuple(to_tensor(a, device) for a in (f, phase, vel))
+
+
+def attention_state(q, k, v, device: str | torch.device | None = None):
+    """``(q, k, v)`` of attention as tensors on ``device``."""
+    return tuple(to_tensor(a, device) for a in (q, k, v))
+
+
+def wkv_state(r, k, v, wlog, u, device: str | torch.device | None = None):
+    """``(r, k, v, wlog, u)`` of the WKV as tensors on ``device``."""
+    return tuple(to_tensor(a, device) for a in (r, k, v, wlog, u))

@@ -1,0 +1,69 @@
+"""Entry point of GQA flash attention, with its tile choice.
+
+Counterpart of ``repro.kernels.attention.ops``.  The JAX package ranks
+Pallas (block_q, block_kv) tiles with its TPU estimator, which models VMEM
+and the MXU and so says nothing about this kernel.  No GPU IR describes the
+fused flash kernel either (the registry's ``attention_gpu_ir`` models a
+naive pass over the score matrix).  So the tile is not ranked: it is fixed
+by measurement.  :data:`MEASURED_ORDER` lists the compiled tiles by their
+time on an NVIDIA H100 80GB HBM3 (700 W) at Qwen2.5-14B's width (B = 1,
+Hq = 40, Hkv = 8, S = 4096, D = 128, bf16, causal), and
+:func:`select_blocks` takes the first that divides S.  In effect that is
+(64, 64) wherever 64 divides S and (32, 32) for the other multiples of 32;
+(128, 64) and (64, 32) are never picked, and are compiled so that
+``chip_smoke.py``, which times every compiled tile at that shape on every
+run, shows how near the runners-up come.  ``PERF.md`` records the times.
+"""
+from __future__ import annotations
+
+import torch
+
+from .kernel import compiled, flash_attention_cuda
+from .ref import mha_plain
+
+# fastest first, by chip_smoke.py's per-tile times at that shape (PERF.md,
+# Findings)
+MEASURED_ORDER = ((64, 64), (128, 64), (64, 32), (32, 32))
+
+
+def config_space(
+    b: int, hq: int, hkv: int, s: int, d: int, dtype=torch.bfloat16, causal: bool = True
+) -> list[tuple[int, int]]:
+    """The compiled (block_q, block_kv) tiles that divide ``s`` at head dim
+    ``d``, in :data:`MEASURED_ORDER`.  ``b``, ``hq``, ``hkv``, ``dtype`` and
+    ``causal`` are not read: they keep the JAX package's signature, whose
+    estimator ranks by them."""
+    return [(bq, bkv) for bq, bkv in MEASURED_ORDER if not (s % bq or s % bkv) and compiled(bq, bkv, d)]
+
+
+def select_blocks(
+    b: int, hq: int, hkv: int, s: int, d: int, dtype=torch.bfloat16, causal: bool = True
+) -> tuple[int, int]:
+    """The first tile of :func:`config_space`, the fastest measured tile
+    that this shape admits: (64, 64) if 64 divides ``s``, else (32, 32) if
+    32 does, else ``ValueError``."""
+    space = config_space(b, hq, hkv, s, d, dtype, causal)
+    if not space:
+        raise ValueError(f"no compiled tile divides seq {s} at head dim {d}")
+    return space[0]
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    block_q: int | None = None,
+    block_kv: int | None = None,
+) -> torch.Tensor:
+    """GQA attention of ``q`` (B, Hq, S, D) over ``k``, ``v`` (B, Hkv, S, D);
+    picks the tile with :func:`select_blocks` where one is not given."""
+    if block_q is None or block_kv is None:
+        b, hq, s, d = q.shape
+        bq, bkv = select_blocks(b, hq, k.shape[1], s, d, q.dtype, causal)
+        block_q = block_q or bq
+        block_kv = block_kv or bkv
+    return flash_attention_cuda(q, k, v, causal=causal, block_q=block_q, block_kv=block_kv)
+
+
+__all__ = ["config_space", "flash_attention", "mha_plain", "select_blocks"]

@@ -1,0 +1,3 @@
+from .kernel import wkv_cuda  # noqa: F401
+from .ops import config_space, select_chunk, wkv  # noqa: F401
+from .ref import wkv_plain  # noqa: F401

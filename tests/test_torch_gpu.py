@@ -4,17 +4,25 @@ Marked ``gpu``: each test skips where ``torch.cuda.is_available()`` is false
 (decided inside the test, never at import).  Run them on a machine with an
 NVIDIA Hopper card with ``PYTHONPATH=src python -m pytest -m gpu
 tests/test_torch_gpu.py``.  This file imports neither jax nor ``repro``.
-Tolerances: f64 1e-10, f32 3e-5, bf16 4e-2.
+Tolerances: max abs error f64 1e-10, f32 3e-5, bf16 4e-2; elementwise
+``|a - b| <= atol + rtol |b|`` besides, for bf16 attention at atol 2e-3,
+rtol 1e-2 (one bf16 ulp is at most 2^-7 |b|) and for WKV at 5e-4, 5e-4
+(the JAX test's rtol = atol).
 """
 from __future__ import annotations
 
 import pytest
 import torch
 
+from repro_torch.kernels.attention import flash_attention, flash_attention_cuda, mha_plain
+from repro_torch.kernels.attention.kernel import HEAD_DIMS, TILES
 from repro_torch.kernels.lbm_d3q15 import config_space as lbm_space
 from repro_torch.kernels.lbm_d3q15 import init_fields, lbm_d3q15_cuda, lbm_step, lbm_step_plain
 from repro_torch.kernels.stencil25 import config_space as stencil_space
 from repro_torch.kernels.stencil25 import stencil25, stencil25_cuda, stencil25_plain
+from repro_torch.kernels.wkv import wkv, wkv_cuda, wkv_plain
+from repro_torch.kernels.wkv.kernel import CHUNKS
+from repro_torch.kernels.wkv.kernel import HEAD_DIMS as WKV_HEAD_DIMS
 
 pytestmark = pytest.mark.gpu
 
@@ -54,6 +62,43 @@ def test_lbm_kernel_matches_plain_on_every_config(cuda, dtype):
         assert _err(fo, fr) <= TOL[dtype] and _err(po, pr) <= TOL[dtype], cfg
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_flash_kernel_matches_plain_on_every_tile(cuda, dtype, d):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for hq, hkv in ((4, 4), (4, 2), (8, 1), (10, 2)):
+        q, k, v = (torch.randn((1, h, 256, d), generator=gen, device=cuda).to(dtype)
+                   for h in (hq, hkv, hkv))
+        for causal in (True, False):
+            plain = mha_plain(q, k, v, causal)
+            for bq, bkv in TILES:
+                out = flash_attention_cuda(q, k, v, causal, bq, bkv)
+                assert out.dtype == dtype and out.shape == q.shape
+                assert _err(out, plain) <= TOL[dtype], (hq, hkv, causal, bq, bkv)
+                if dtype == torch.bfloat16:
+                    assert _close(out, plain, 2e-3, 1e-2), (hq, hkv, causal, bq, bkv)
+
+
+def _wkv_inputs(gen, bh, s, kd, device):
+    r, k, v = (torch.randn((bh, s, kd), generator=gen, device=device) for _ in range(3))
+    wlog = -torch.exp(torch.randn((bh, s, kd), generator=gen, device=device).clamp(-8, 4))
+    return r, k, v, wlog, torch.randn((kd,), generator=gen, device=device)
+
+
+def _close(a, b, atol, rtol):
+    a, b = a.float(), b.float()
+    return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+@pytest.mark.parametrize("kd", WKV_HEAD_DIMS)
+def test_wkv_kernel_matches_plain_on_every_chunk(cuda, kd):
+    inputs = _wkv_inputs(torch.Generator(device=cuda).manual_seed(3), 3, 128, kd, cuda)
+    plain_out, plain_state = wkv_plain(*inputs)
+    for chunk in CHUNKS:
+        out, state = wkv_cuda(*inputs, chunk=chunk)
+        assert _close(out, plain_out, 5e-4, 5e-4) and _close(state, plain_state, 5e-4, 5e-4), chunk
+
+
 def test_cuda_tensors_always_launch(cuda):
     src = torch.randn((16, 16, 32), device=cuda, dtype=torch.float64)
     n = stencil25_cuda.launches
@@ -63,6 +108,14 @@ def test_cuda_tensors_always_launch(cuda):
     n = lbm_d3q15_cuda.launches
     lbm_step(f, phase, vel)
     assert lbm_d3q15_cuda.launches == n + 1
+    q = torch.randn((1, 4, 128, 64), device=cuda, dtype=torch.bfloat16)
+    n = flash_attention_cuda.launches
+    flash_attention(q, q[:, :2].contiguous(), q[:, :2].contiguous())  # tile picked by select_blocks
+    assert flash_attention_cuda.launches == n + 1
+    inputs = _wkv_inputs(torch.Generator(device=cuda).manual_seed(4), 2, 64, 32, cuda)
+    n = wkv_cuda.launches
+    wkv(*inputs)  # chunk picked by select_chunk
+    assert wkv_cuda.launches == n + 1
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -80,3 +133,22 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         lbm_d3q15_cuda(f, phase, vel, block=(32, 4, 8))  # 1024 > 512 threads
     with pytest.raises(ValueError):
         lbm_d3q15_cuda(f, phase.double(), vel)
+    q = torch.randn((1, 2, 256, 64), device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q, q, q, block_q=256, block_kv=64)  # tile not compiled
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q[..., :48].contiguous(), q[..., :48].contiguous(),
+                             q[..., :48].contiguous(), block_q=64, block_kv=64)  # head dim 48
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q.half(), q.half(), q.half(), block_q=64, block_kv=64)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q.transpose(2, 3).contiguous().transpose(2, 3)[:, :, :64, :],
+                             q[:, :, :64].contiguous(), q[:, :, :64].contiguous(), block_q=64, block_kv=64)
+    r, k, v, wlog, u = _wkv_inputs(torch.Generator(device=cuda).manual_seed(5), 2, 128, 16, cuda)
+    with pytest.raises(ValueError):
+        wkv_cuda(r, k, v, wlog, u, chunk=128)  # chunk not compiled
+    with pytest.raises(TypeError):
+        wkv_cuda(r.double(), k.double(), v.double(), wlog.double(), u.double(), chunk=16)
+    r8, k8, v8, w8, u8 = _wkv_inputs(torch.Generator(device=cuda).manual_seed(6), 2, 128, 8, cuda)
+    with pytest.raises(ValueError):
+        wkv_cuda(r8, k8, v8, w8, u8, chunk=16)  # K not compiled

@@ -18,8 +18,10 @@ import pytest
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.attention import flash_attention, flash_attention_cuda
 from repro_torch.kernels.lbm_d3q15 import init_fields, lbm_d3q15_cuda, lbm_step
 from repro_torch.kernels.stencil25 import stencil25, stencil25_cuda
+from repro_torch.kernels.wkv import wkv, wkv_cuda
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -50,7 +52,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert res["bad"] == []
     for name in ("repro_torch.convert", "repro_torch._build",
                  "repro_torch.kernels.stencil25.kernel", "repro_torch.kernels.lbm_d3q15.ops",
-                 "repro_torch.core.estimator", "repro_torch.frontend.lower"):
+                 "repro_torch.core.estimator", "repro_torch.frontend.lower",
+                 "repro_torch.kernels.attention.kernel", "repro_torch.kernels.attention.ops",
+                 "repro_torch.kernels.attention.ref", "repro_torch.kernels.wkv.kernel",
+                 "repro_torch.kernels.wkv.ops", "repro_torch.kernels.wkv.ref"):
         assert name in res["modules"]
 
 
@@ -65,12 +70,22 @@ def test_state_defaults_to_cuda():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def _launches():
+    return tuple(fn.launches for fn in (stencil25_cuda, lbm_d3q15_cuda, flash_attention_cuda, wkv_cuda))
+
+
 def test_cpu_path_leaves_launch_counters_alone():
-    before = (stencil25_cuda.launches, lbm_d3q15_cuda.launches)
+    before = _launches()
     stencil25(torch.ones((8, 8, 16)), block=(16, 4, 2), fold=(1, 1, 1))
     f, phase, vel = init_fields((4, 4, 8), device="cpu")
     lbm_step(f, phase, vel, block=(8, 4, 4))
-    assert (stencil25_cuda.launches, lbm_d3q15_cuda.launches) == before
+    q = torch.ones((1, 2, 64, 32))
+    flash_attention(q, q, q)
+    flash_attention_cuda(q, q, q, block_q=32, block_kv=64)
+    t = torch.full((2, 32, 16), -0.5)
+    wkv(t, t, t, t, torch.ones(16))
+    wkv_cuda(t, t, t, t, torch.ones(16), chunk=16)
+    assert _launches() == before
 
 
 def test_chip_smoke_fails_without_cuda():
