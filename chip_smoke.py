@@ -11,13 +11,18 @@ with the tile or chunk fixed by measurement.  Phases, one JSON line each:
 
 1. device  — the card, its count, and ``nvidia-smi``'s name and power limit;
 2. build   — the four kernels built from ``src/repro_torch/csrc`` (one
-   ``nvcc`` each, started together), with build seconds and registers per
+   ``nvcc`` each, started together), with build seconds, registers per
    thread of every instantiation (beside the IR's assumption for the two
-   paper kernels);
+   paper kernels) and the count of tensor-core ``HMMA`` instructions in each
+   kernel's SASS (``cuobjdump -sass``); a bf16 flash instantiation without
+   one fails the run;
 3. check   — every kernel against its plain PyTorch version at small sizes:
    all 162 stencil and all 49 LBM configurations in f64, a few in f32/bf16;
    every compiled flash (tile, head dim, dtype) at four head groupings,
-   causal and not; every compiled WKV (chunk, K), output and final state.
+   causal and not, at S = 256, and every bf16 tile at S = 2048, D = 128,
+   (Hq, Hkv) = (10, 2), causal, where rows from 1024 on exist; every
+   compiled WKV (chunk, K), output and final state, at S = 128 and at
+   S = 1024 (64 chunks of 16, so the double buffer turns over many times).
    Limits: max abs error f64 1e-10, f32 3e-5, bf16 4e-2, and elementwise
    ``|a - b| <= atol + rtol |b|`` for bf16 attention (``ATTN_RULE``) and
    WKV (``WKV_RULE``);
@@ -26,9 +31,12 @@ with the tile or chunk fixed by measurement.  Phases, one JSON line each:
    at (B, Hq, Hkv, S, D) = (1, 40, 8, 4096, 128) bf16 causal and ``wkv`` at
    (BH, S, K) = (64, 4096, 64) f32, with ``block_q/block_kv/chunk = None``.
    Launch counts are zeroed just before each path and read just after.
-   Then kernel, plain-version and yardstick times from CUDA events (for
-   the new paths, every compiled tile or chunk at the main shape), each
-   against its bound.
+   Then kernel, plain-version and yardstick times from CUDA events, over
+   launches back to back (``ms``; for the attention and WKV paths, every
+   compiled tile or chunk at the main shape), each against its bound, and
+   the kernel's median single launch, as the port's earlier times were
+   taken (``ms_one_launch``, beside the attention and WKV kernels' times
+   before their redesign, ``pr12_ms``).
 
 Then the ``nvidia-smi`` line, a ``kernels`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line, on
@@ -36,8 +44,10 @@ any failure and where CUDA or the port is missing.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -72,11 +82,13 @@ TOL = {torch.float64: 1e-10, torch.float32: 3e-5, torch.bfloat16: 4e-2}
 STENCIL_BYTES_PER_CELL = 16  # f64: src read once, dst written once
 LBM_BYTES_PER_CELL = 280  # f64: 15 pdfs + phase + 3 vel read, 15 pdfs + phase written
 REPS = 20
+ORDER_REPS = 50  # the per-tile and per-chunk times that MEASURED_ORDER follows
 ATTN_SHAPE = (1, 40, 8, 4096, 128)  # (B, Hq, Hkv, S, D): one layer of configs/qwen2_5_14b.py
 ATTN_CHECK_HEADS = ((4, 4), (4, 2), (8, 1), (10, 2))
 ATTN_CHECK_SEQ = 256
+ATTN_LONG_CHECK = (10, 2, 2048, 128)  # (Hq, Hkv, S, D): rows from 1024 on, causal, bf16
 WKV_SHAPE = (64, 4096, 64)  # (BH, S, K): configs/rwkv6_1_6b.py, 32 heads of 64 at batch 2
-WKV_CHECK_SHAPE = (3, 128)  # (BH, S)
+WKV_CHECK_SHAPES = ((3, 128), (5, 1024))  # (BH, S)
 # elementwise rules |a - b| <= atol + rtol |b|, as (atol, rtol).  bf16
 # attention on top of its max abs error: one bf16 ulp is at most 2^-7 |b|, so
 # the rule admits the last-bit disagreement of two f32 results each rounded
@@ -85,6 +97,10 @@ WKV_CHECK_SHAPE = (3, 128)  # (BH, S)
 ATTN_RULE = (2e-3, 1e-2)
 WKV_RULE = (5e-4, 5e-4)
 WKV_FLOPS_PER_TOKEN = 6  # times K^2 per head: the stepwise recurrence
+# the attention and WKV kernels' times at the main shapes before their
+# redesign for Hopper (f32 scalar kernels; NVIDIA H100 80GB HBM3, 700 W),
+# shown beside each run's own; taken as ``time_one_launch_ms`` takes them
+PR12_MS = {"flash_attention": 6.5022, "wkv": 2.7553}
 KERNELS = {  # name: (launch counter, CUDA source, TPU kernel it replaces)
     "stencil25": (st_kernel.stencil25_cuda, "src/repro_torch/csrc/stencil25.cu",
                   "src/repro/kernels/stencil25/kernel.py:24"),
@@ -106,7 +122,25 @@ def fail(msg: str) -> None:
 
 
 def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
-    """Median of ``reps`` single launches timed with CUDA events."""
+    """Time of one launch: ``reps`` launches back to back between two CUDA
+    events, over ``reps``.  The host enqueues ahead of the card, so the
+    wrapper's own host time between launches does not count."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_one_launch_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
+    """Median of ``reps`` single launches, each between its own two CUDA
+    events: the host's time from the first event to the launch counts too.
+    The port's earlier kernel times were taken this way."""
     for _ in range(warmup):
         fn()
     times = []
@@ -189,11 +223,45 @@ def phase_build() -> None:
     for name, attrs in regs.items():
         if attrs["local_bytes"]:
             print(f"chip_smoke: {name} spills {attrs['local_bytes']} B/thread", file=sys.stderr)
+    hmma = {n: hmma_counts(lib.path) for n, lib in libs.items()}  # by kernel instantiation
     emit({"phase": "build", "wall_s": wall,
           "nvcc_s": {n: lib.build_seconds for n, lib in libs.items()},
           "ir_regs_per_thread": {"stencil25": appspec.star3d_ir((32, 4, 8)).regs_per_thread,
                                  "lbm_d3q15": appspec.lbm_d3q15_ir((32, 4, 4)).regs_per_thread},
-          "kernels": regs})
+          "kernels": regs, "hmma": {n: sum(c.values()) for n, c in hmma.items()},
+          "hmma_flash_attention": hmma["flash_attention"]})
+    missing = [f"flash_tc_kernel<{bq},{bkv},{d}>" for d in attn_kernel.HEAD_DIMS
+               for bq, bkv in attn_kernel.TILES
+               if not hmma["flash_attention"].get(f"flash_tc_kernel<{bq},{bkv},{d}>")]
+    if missing:
+        fail(f"bf16 flash instantiations without tensor-core instructions: {missing}")
+
+
+def hmma_counts(lib: Path) -> dict[str, int]:
+    """HMMA instructions in the SASS of each kernel of a built library, by
+    kernel and template arguments (``flash_tc_kernel<64,64,128>``)."""
+    sass = subprocess.run([_build.toolkit_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        mangled, _, body = block.partition("\n")
+        counts[kernel_name(mangled.strip())] = len(re.findall(r"\bHMMA\b", body))
+    return counts
+
+
+def kernel_name(mangled: str) -> str:
+    """``flash_tc_kernel<64,64,128>`` for a kernel with integer template
+    arguments: the last length-prefixed identifier that ends in ``_kernel``
+    (``15flash_tc_kernel``), then its ``Li<n>E`` arguments.  Any other name
+    is returned as it is."""
+    found = mangled
+    for m in re.finditer(r"(?=(\d+)(\w+))", mangled):
+        n = int(m.group(1))
+        name, rest = m.group(2)[:n], m.group(2)[n:]
+        args = re.match(r"I((?:Li\d+E)+)E", rest)
+        if len(name) == n and name.endswith("_kernel") and args:
+            found = f"{name}<{','.join(re.findall(r'Li(\d+)E', args.group(1)))}>"
+    return found
 
 
 def phase_check() -> None:
@@ -236,8 +304,19 @@ def phase_check() -> None:
 
 def check_attention(gen: torch.Generator) -> dict:
     """Every compiled (tile, head dim, dtype), at four head groupings, causal
-    and not, against ``mha_plain`` at S = 256; bf16 also by ``ATTN_RULE``."""
+    and not, against ``mha_plain`` at S = 256; bf16 also by ``ATTN_RULE``,
+    and every bf16 tile at ``ATTN_LONG_CHECK``."""
     res = {}
+    hq, hkv, seq, d = ATTN_LONG_CHECK
+    q, k, v = (torch.randn((1, h, seq, d), generator=gen, device="cuda").to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    plain = attention.mha_plain(q, k, v, True)
+    for bq, bkv in attn_kernel.TILES:
+        out = attn_kernel.flash_attention_cuda(q, k, v, True, bq, bkv)
+        res[f"flash_attention bfloat16 d{d} S{seq} {bq}x{bkv}"] = {
+            "max_abs_err": max_err(out, plain), "tol": TOL[torch.bfloat16],
+            "max_ratio": rule_ratio(out, plain, ATTN_RULE), "rule": rule_text(ATTN_RULE)}
+    del q, k, v, plain
     for dtype in (torch.float32, torch.bfloat16):
         for d in attn_kernel.HEAD_DIMS:
             err = ratio = 0.0
@@ -269,20 +348,26 @@ def wkv_inputs(gen: torch.Generator, bh: int, seq: int, kd: int) -> tuple[torch.
 
 def check_wkv(gen: torch.Generator) -> dict:
     """Every compiled (chunk, K), output and final state, against
-    ``wkv_plain`` by the elementwise rule."""
+    ``wkv_plain`` by the elementwise rule, at each of ``WKV_CHECK_SHAPES``."""
     res = {}
-    bh, seq = WKV_CHECK_SHAPE
-    for kd in wkv_kernel.HEAD_DIMS:
+    for (bh, seq), kd in itertools.product(WKV_CHECK_SHAPES, wkv_kernel.HEAD_DIMS):
         inputs = wkv_inputs(gen, bh, seq, kd)
         plain_out, plain_state = wkv.wkv_plain(*inputs)
         for chunk in wkv_kernel.CHUNKS:
             out, state = wkv_kernel.wkv_cuda(*inputs, chunk=chunk)
-            res[f"wkv L{chunk} K{kd}"] = {
+            res[f"wkv L{chunk} K{kd} S{seq}"] = {
                 "max_abs_err": max(max_err(out, plain_out), max_err(state, plain_state)),
                 "max_ratio": max(rule_ratio(out, plain_out, WKV_RULE),
                                  rule_ratio(state, plain_state, WKV_RULE)),
                 "rule": rule_text(WKV_RULE)}
     return res
+
+
+def in_measured_order(times: dict[str, float]) -> bool:
+    """Whether the configurations, in the ``MEASURED_ORDER`` that their
+    entry point's ``config_space`` lists them in, run fastest first here."""
+    listed = list(times.values())
+    return listed == sorted(listed)
 
 
 def bound_ms(n_bytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -323,12 +408,14 @@ def phase_main_paper() -> list[dict]:
     del plain
     cells = src.numel()
     ms = time_ms(lambda: stencil25.stencil25_cuda(src, 4, cfg["block"], cfg["fold"]))
+    one_ms = time_one_launch_ms(lambda: stencil25.stencil25_cuda(src, 4, cfg["block"], cfg["fold"]))
     plain_ms = time_ms(lambda: stencil25.stencil25_plain(src, 4), reps=5, warmup=1)
     copy_ms = time_ms(lambda: dst.copy_(src))
     b_ms, b_by = bound_ms(cells * STENCIL_BYTES_PER_CELL, cells * (2 * 25 - 1), torch.float64)
     out.append({"name": "stencil25", "shape": STENCIL_SHAPE, "dtype": "float64",
                 "block": cfg["block"], "fold": cfg["fold"], "predicted_glups": pred.glups,
-                "predicted_limiter": pred.limiter, "ms": ms, "measured_glups": cells / ms / 1e6,
+                "predicted_limiter": pred.limiter, "ms": ms, "ms_one_launch": one_ms,
+                "measured_glups": cells / ms / 1e6,
                 "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms, "copy_ms": copy_ms,
                 "max_abs_err": err, "launches": launches["stencil25"]})
     del src, dst
@@ -344,13 +431,15 @@ def phase_main_paper() -> list[dict]:
     del fr, pr, f, phase
     cells = phase0.numel()
     ms = time_ms(lambda: lbm.lbm_d3q15_cuda(f0, phase0, vel, block=lcfg["block"]))
+    one_ms = time_one_launch_ms(lambda: lbm.lbm_d3q15_cuda(f0, phase0, vel, block=lcfg["block"]))
     plain_ms = time_ms(lambda: lbm.lbm_step_plain(f0, phase0, vel), reps=5, warmup=1)
     yard = torch.empty_like(f0)
     copy_ms = time_ms(lambda: yard.copy_(f0))
     b_ms, b_by = bound_ms(cells * LBM_BYTES_PER_CELL, cells * 350.0, torch.float64)
     out.append({"name": "lbm_d3q15", "shape": LBM_SHAPE, "dtype": "float64",
                 "block": lcfg["block"], "fold": lcfg["fold"], "predicted_glups": lpred.glups,
-                "predicted_limiter": lpred.limiter, "ms": ms, "measured_glups": cells / ms / 1e6,
+                "predicted_limiter": lpred.limiter, "ms": ms, "ms_one_launch": one_ms,
+                "measured_glups": cells / ms / 1e6,
                 "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms,
                 "copy_ms": copy_ms, "copy_bytes": f0.numel() * 8, "steps": LBM_STEPS,
                 "max_abs_err": lerr, "launches": launches["lbm_d3q15"]})
@@ -389,7 +478,8 @@ def phase_main_attention() -> dict:
     library_ratio = rule_ratio(sdpa(), plain, ATTN_RULE)
     del plain
     tile = attention.select_blocks(b, hq, hkv, seq, d, q.dtype)
-    tiles_ms = {f"{bq}x{bkv}": time_ms(lambda bq=bq, bkv=bkv: attn_kernel.flash_attention_cuda(q, k, v, True, bq, bkv))
+    tiles_ms = {f"{bq}x{bkv}": time_ms(lambda bq=bq, bkv=bkv: attn_kernel.flash_attention_cuda(q, k, v, True, bq, bkv),
+                                       reps=ORDER_REPS)
                 for bq, bkv in attention.config_space(b, hq, hkv, seq, d, q.dtype)}
     plain_ms = time_ms(lambda: attention.mha_plain(q, k, v), reps=3, warmup=1)
     sdpa_ms = time_ms(sdpa)
@@ -397,9 +487,12 @@ def phase_main_attention() -> dict:
     flops = 4.0 * b * hq * d * seq * (seq + 1) / 2  # QK^T and PV over the unmasked pairs
     b_ms, b_by = bound_ms(n_bytes, flops, q.dtype)
     ms = tiles_ms[f"{tile[0]}x{tile[1]}"]
+    one_ms = time_one_launch_ms(lambda: attn_kernel.flash_attention_cuda(q, k, v, True, *tile))
     res = {"name": "flash_attention", "shape": ATTN_SHAPE, "dtype": "bfloat16", "causal": True,
-           "tile": tile, "ms": ms, "tflops": flops / ms / 1e9, "bound_ms": b_ms, "bound_by": b_by,
-           "plain_ms": plain_ms, "library_ms": sdpa_ms, "tiles_ms": tiles_ms, "max_abs_err": err,
+           "tile": tile, "ms": ms, "ms_one_launch": one_ms, "tflops": flops / ms / 1e9,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "pr12_ms": PR12_MS["flash_attention"], "plain_ms": plain_ms, "library_ms": sdpa_ms,
+           "tiles_ms": tiles_ms, "order_matches": in_measured_order(tiles_ms), "max_abs_err": err,
            "tol": TOL[torch.bfloat16], "max_ratio": ratio, "rule": rule_text(ATTN_RULE),
            "library_ratio": library_ratio, "launches": launches["flash_attention"]}
     emit({"phase": "main", "path": "attention", "seconds": main_s, "launches": launches, "results": [res]})
@@ -429,7 +522,7 @@ def phase_main_wkv() -> dict:
     ratio = max(rule_ratio(out, plain_out, WKV_RULE), rule_ratio(state, plain_state, WKV_RULE))
     del plain_out, plain_state
     chunk = wkv.select_chunk(bh, seq, kd)
-    chunks_ms = {f"L{c}": time_ms(lambda c=c: wkv_kernel.wkv_cuda(*inputs, chunk=c))
+    chunks_ms = {f"L{c}": time_ms(lambda c=c: wkv_kernel.wkv_cuda(*inputs, chunk=c), reps=ORDER_REPS)
                  for c in wkv.config_space(bh, seq, kd)}
     plain_ms = time_ms(lambda: wkv.wkv_plain(*inputs), reps=2, warmup=1)
     # r, k, v, wlog read and out written once; u read and the final state written
@@ -437,9 +530,11 @@ def phase_main_wkv() -> dict:
     flops = float(WKV_FLOPS_PER_TOKEN * kd * kd * bh * seq)
     b_ms, b_by = bound_ms(n_bytes, flops, torch.float32)
     ms = chunks_ms[f"L{chunk}"]
+    one_ms = time_one_launch_ms(lambda: wkv_kernel.wkv_cuda(*inputs, chunk=chunk))
     res = {"name": "wkv", "shape": WKV_SHAPE, "dtype": "float32", "chunk": chunk, "ms": ms,
-           "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms, "library_ms": None,
-           "chunks_ms": chunks_ms, "max_abs_err": err, "max_ratio": ratio,
+           "ms_one_launch": one_ms, "pr12_ms": PR12_MS["wkv"], "bound_ms": b_ms, "bound_by": b_by,
+           "plain_ms": plain_ms, "library_ms": None, "chunks_ms": chunks_ms,
+           "order_matches": in_measured_order(chunks_ms), "max_abs_err": err, "max_ratio": ratio,
            "rule": rule_text(WKV_RULE), "launches": launches["wkv"]}
     emit({"phase": "main", "path": "wkv", "seconds": main_s, "launches": launches, "results": [res]})
     if not holds(res):

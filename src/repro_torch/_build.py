@@ -30,8 +30,18 @@ NVCC_FLAGS = (
 @dataclass(frozen=True)
 class Library:
     name: str
+    path: Path
     cdll: ctypes.CDLL
     build_seconds: float  # 0.0 when an up-to-date library was loaded
+
+
+def toolkit_tool(name: str) -> str:
+    """A program of the CUDA toolkit that builds the kernels (``cuobjdump``,
+    ``nvdisasm``), found beside its ``nvcc``."""
+    tool = Path(_nvcc()).parent / name
+    if not tool.exists():
+        raise RuntimeError(f"{name} not found beside {_nvcc()}")
+    return str(tool)
 
 
 def _nvcc() -> str:
@@ -90,4 +100,4 @@ def _build_all(names: tuple[str, ...]) -> list[Library]:
         os.replace(tmp, targets[n])
     if failures:
         raise RuntimeError("\n".join(failures))
-    return [Library(n, _dlopen(targets[n]), seconds.get(n, 0.0)) for n in names]
+    return [Library(n, targets[n], _dlopen(targets[n]), seconds.get(n, 0.0)) for n in names]

@@ -2,9 +2,11 @@
 
 Replaces the Pallas TPU kernel
 ``repro.kernels.attention.kernel.flash_attention_pallas``: GQA attention
-forward with an online softmax, one thread block per (q tile, q head,
-batch) and a loop over kv tiles inside it.  A tensor on the CPU goes to the
-plain version (:func:`~repro_torch.kernels.attention.ref.mha_plain`); a CUDA
+forward with an online softmax, one thread block per (q head, batch, q
+tile) and a loop over kv tiles inside it.  bf16 runs both products on the
+tensor cores (``mma.sync``, with P split in two bf16 halves to keep its f32
+precision); f32 runs scalar FMAs.  A tensor on the CPU goes to the plain
+version (:func:`~repro_torch.kernels.attention.ref.mha_plain`); a CUDA
 tensor launches the kernel or raises.
 """
 from __future__ import annotations

@@ -10,7 +10,7 @@ time on an NVIDIA H100 80GB HBM3 (700 W) at Qwen2.5-14B's width (B = 1,
 Hq = 40, Hkv = 8, S = 4096, D = 128, bf16, causal), and
 :func:`select_blocks` takes the first that divides S.  In effect that is
 (64, 64) wherever 64 divides S and (32, 32) for the other multiples of 32;
-(128, 64) and (64, 32) are never picked, and are compiled so that
+(64, 32) and (128, 64) are never picked, and are compiled so that
 ``chip_smoke.py``, which times every compiled tile at that shape on every
 run, shows how near the runners-up come.  ``PERF.md`` records the times.
 """
@@ -21,9 +21,9 @@ import torch
 from .kernel import compiled, flash_attention_cuda
 from .ref import mha_plain
 
-# fastest first, by chip_smoke.py's per-tile times at that shape (PERF.md,
-# Findings)
-MEASURED_ORDER = ((64, 64), (128, 64), (64, 32), (32, 32))
+# fastest first, by chip_smoke.py's per-tile times at that shape with the
+# bf16 kernel on the tensor cores (PERF.md, Findings)
+MEASURED_ORDER = ((64, 64), (64, 32), (128, 64), (32, 32))
 
 
 def config_space(

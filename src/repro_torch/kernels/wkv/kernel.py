@@ -1,10 +1,11 @@
 """ctypes wrapper of the CUDA chunked WKV kernel (``csrc/wkv.cu``).
 
 Replaces the Pallas TPU kernel ``repro.kernels.wkv.kernel.wkv_pallas``: one
-thread block per (batch*head), a loop over chunks of L steps inside it, and
-the (K, K) f32 state in shared memory across the loop.  A tensor on the CPU
-goes to the plain version (:func:`~repro_torch.kernels.wkv.ref.wkv_plain`);
-a CUDA tensor launches the kernel or raises.
+thread block per (batch*head, 16 columns of v), a loop over chunks of L
+steps inside it, and the block's (K, 16) slice of the f32 state in
+registers across the loop.  A tensor on the CPU goes to the plain version
+(:func:`~repro_torch.kernels.wkv.ref.wkv_plain`); a CUDA tensor launches the
+kernel or raises.
 """
 from __future__ import annotations
 

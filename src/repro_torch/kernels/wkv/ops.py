@@ -17,8 +17,8 @@ from __future__ import annotations
 from .kernel import HEAD_DIMS, wkv_cuda
 from .ref import wkv_plain
 
-# fastest first, by chip_smoke.py's per-chunk times at that shape (PERF.md,
-# Findings)
+# fastest first, by chip_smoke.py's per-chunk times at that shape with the
+# kernel split over v's columns (PERF.md, Findings)
 MEASURED_ORDER = (16, 32, 64)
 
 

@@ -75,6 +75,57 @@ def test_plain_equals_mha_ref_at_a_group_of_five_and_head_dim_128():
     np.testing.assert_allclose(_f32(mha_plain(qt, kt, vt)), _f32(mha_ref(q, k, v)), **TOL[jnp.bfloat16])
 
 
+def _tensor_core_model(q, k, v, p_lo: bool, block_kv: int = 64):
+    """The bf16 CUDA kernel's arithmetic in plain torch, causal: f32 logits
+    of bf16 q, k; the online softmax over kv tiles with the TPU kernel's
+    masking (-1e30, m from -1e30, p = 0 where masked, l >= 1e-30); l summed
+    from f32 p; P V as P_hi V + P_lo V with P_hi = bf16(p) and
+    P_lo = bf16(p - P_hi) (``p_lo``), or P_hi V alone, accumulated in f32."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    qf = q.float()
+    kf, vf = (t.float().repeat_interleave(group, dim=1) for t in (k, v))
+    rows = torch.arange(s)[:, None]
+    m = torch.full((b, hq, s, 1), -1e30)
+    l = torch.zeros((b, hq, s, 1))
+    acc = torch.zeros((b, hq, s, d))
+    for k0 in range(0, s, block_kv):
+        keep = rows >= torch.arange(k0, k0 + block_kv)[None, :]
+        x = torch.where(keep, qf @ kf[:, :, k0:k0 + block_kv].transpose(-1, -2) / d**0.5, -1e30)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        p = torch.where(keep, torch.exp(x - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        pv = hi @ vf[:, :, k0:k0 + block_kv]
+        if p_lo:
+            pv = pv + (p - hi).bfloat16().float() @ vf[:, :, k0:k0 + block_kv]
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).bfloat16()
+
+
+def _rule_reading(a, b, atol=2e-3, rtol=1e-2) -> float:
+    a, b = _f32(a), _f32(b)
+    return float((np.abs(a - b) / (atol + rtol * np.abs(b))).max())
+
+
+def test_split_p_keeps_the_bf16_rule_at_s4096_where_bf16_p_does_not():
+    """P split in two bf16 halves on the tensor cores, at Qwen2.5-14B's
+    sequence and head dim, over two q heads of one kv head.  Read against
+    ``mha_ref`` of the same bf16 values in f32 (the exact softmax of these
+    inputs), the split reads at most 0.5 on the bf16 rule and P_hi alone (P
+    rounded once to bf16, as SDPA keeps it) reads more.  Against ``mha_ref``
+    in bf16, whose own rounding puts sound readings anywhere up to about
+    0.78, the split keeps the rule."""
+    (q, k, v), (qt, kt, vt) = _inputs(27, 1, 2, 1, 4096, 128, jnp.bfloat16)
+    exact = mha_ref(*(a.astype(jnp.float32) for a in (q, k, v)), causal=True)
+    split = _tensor_core_model(qt, kt, vt, p_lo=True)
+    assert _rule_reading(split, exact) <= 0.5
+    assert _rule_reading(_tensor_core_model(qt, kt, vt, p_lo=False), exact) > _rule_reading(split, exact)
+    assert _rule_reading(split, mha_ref(q, k, v, causal=True)) <= 1.0
+
+
 def test_entry_point_selects_a_compiled_tile_and_runs_plain_on_cpu():
     (_, (qt, kt, vt)) = _inputs(24, 1, 4, 2, 256, 64, jnp.float32)
     before = flash_attention_cuda.launches
@@ -87,6 +138,9 @@ def test_entry_point_selects_a_compiled_tile_and_runs_plain_on_cpu():
 def test_select_blocks_returns_a_compiled_tile_that_divides_s(s, d):
     bq, bkv = select_blocks(1, 40, 8, s, d)
     assert (bq, bkv) == ((64, 64) if not s % 64 else (32, 32))
+    # the order of the tensor-core kernel's tiles on the card (PERF.md)
+    assert config_space(1, 40, 8, s, d) == [
+        t for t in ((64, 64), (64, 32), (128, 64), (32, 32)) if not s % t[0] and not s % t[1]]
     assert compiled(bq, bkv, d) and not s % bq and not s % bkv
     assert (bq, bkv) == config_space(1, 40, 8, s, d)[0]
     assert all(compiled(*t, d) and not s % t[0] and not s % t[1] for t in config_space(1, 40, 8, s, d))

@@ -79,6 +79,19 @@ def test_flash_kernel_matches_plain_on_every_tile(cuda, dtype, d):
                     assert _close(out, plain, 2e-3, 1e-2), (hq, hkv, causal, bq, bkv)
 
 
+def test_flash_bf16_kernel_matches_plain_at_s2048_on_every_tile(cuda):
+    """Rows from 1024 on, where a fault in the kv loop of a long causal row
+    shows and S = 256 cannot reach."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((1, h, 2048, 128), generator=gen, device=cuda).to(torch.bfloat16)
+               for h in (10, 2, 2))
+    plain = mha_plain(q, k, v, True)
+    for bq, bkv in TILES:
+        out = flash_attention_cuda(q, k, v, True, bq, bkv)
+        assert _err(out, plain) <= TOL[torch.bfloat16], (bq, bkv)
+        assert _close(out, plain, 2e-3, 1e-2), (bq, bkv)
+
+
 def _wkv_inputs(gen, bh, s, kd, device):
     r, k, v = (torch.randn((bh, s, kd), generator=gen, device=device) for _ in range(3))
     wlog = -torch.exp(torch.randn((bh, s, kd), generator=gen, device=device).clamp(-8, 4))
@@ -97,6 +110,17 @@ def test_wkv_kernel_matches_plain_on_every_chunk(cuda, kd):
     for chunk in CHUNKS:
         out, state = wkv_cuda(*inputs, chunk=chunk)
         assert _close(out, plain_out, 5e-4, 5e-4) and _close(state, plain_state, 5e-4, 5e-4), chunk
+
+
+@pytest.mark.parametrize("kd", WKV_HEAD_DIMS)
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_wkv_kernel_matches_plain_at_s1024(cuda, chunk, kd):
+    """64 chunks of 16 at the shortest chunk: the double buffer of chunks
+    turns over many times."""
+    inputs = _wkv_inputs(torch.Generator(device=cuda).manual_seed(8), 5, 1024, kd, cuda)
+    plain_out, plain_state = wkv_plain(*inputs)
+    out, state = wkv_cuda(*inputs, chunk=chunk)
+    assert _close(out, plain_out, 5e-4, 5e-4) and _close(state, plain_state, 5e-4, 5e-4)
 
 
 def test_cuda_tensors_always_launch(cuda):

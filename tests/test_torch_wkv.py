@@ -77,6 +77,8 @@ def test_entry_point_selects_a_chunk_and_runs_plain_on_cpu():
 def test_select_chunk_returns_a_compiled_chunk_that_divides_s(s, K):
     chunk = select_chunk(64, s, K)
     assert chunk in CHUNKS and not s % chunk
+    # the order of the chunks on the card (PERF.md): shortest first
+    assert config_space(64, s, K) == [c for c in (16, 32, 64) if not s % c]
     assert chunk == config_space(64, s, K)[0]
     assert all(c in CHUNKS and not s % c for c in config_space(64, s, K))
 
