@@ -11,13 +11,17 @@ with the tile or chunk fixed by measurement.  Phases, one JSON line each:
 
 1. device  — the card, its count, and ``nvidia-smi``'s name and power limit;
 2. build   — the four kernels built from ``src/repro_torch/csrc`` (one
-   ``nvcc`` each, started together), with build seconds, registers per
-   thread of every instantiation (beside the IR's assumption for the two
-   paper kernels) and the count of tensor-core ``HMMA`` instructions in each
-   kernel's SASS (``cuobjdump -sass``); a bf16 flash instantiation without
-   one fails the run;
+   ``nvcc`` each, and one for each of the stencil probe's three variants,
+   all started together), with build seconds, registers and spills per
+   thread of every instantiation (the staged and the direct stencil kernel
+   each; beside the IR's assumption for the two paper kernels) and the
+   count of tensor-core ``HMMA`` instructions in each kernel's SASS
+   (``cuobjdump -sass``); a bf16 flash instantiation without one fails the
+   run;
 3. check   — every kernel against its plain PyTorch version at small sizes:
-   all 162 stencil and all 49 LBM configurations in f64, a few in f32/bf16;
+   all 162 stencil configurations in f64 and a few in f32/bf16 on both
+   stencil kernels (staged and direct), all 49 LBM configurations in f64
+   and a few in f32; the stencil's yardstick ``conv3d`` on the interior;
    every compiled flash (tile, head dim, dtype) at four head groupings,
    causal and not, at S = 256, and every bf16 tile at S = 2048, D = 128,
    (Hq, Hkv) = (10, 2), causal, where rows from 1024 on exist; every
@@ -30,13 +34,19 @@ with the tile or chunk fixed by measurement.  Phases, one JSON line each:
    (256, 256, 512) f64, each with ``block=None``; then ``flash_attention``
    at (B, Hq, Hkv, S, D) = (1, 40, 8, 4096, 128) bf16 causal and ``wkv`` at
    (BH, S, K) = (64, 4096, 64) f32, with ``block_q/block_kv/chunk = None``.
-   Launch counts are zeroed just before each path and read just after.
-   Then kernel, plain-version and yardstick times from CUDA events, over
-   launches back to back (``ms``; for the attention and WKV paths, every
-   compiled tile or chunk at the main shape), each against its bound, and
-   the kernel's median single launch, as the port's earlier times were
-   taken (``ms_one_launch``, beside the attention and WKV kernels' times
-   before their redesign, ``pr12_ms``).
+   Launch counts are zeroed just before each path and read just after;
+   the direct stencil kernel must not have launched.  Then kernel,
+   plain-version and yardstick times from CUDA events, over launches back
+   to back (``ms``; for the attention and WKV paths, every compiled tile or
+   chunk at the main shape), each against its bound, and the kernel's
+   median single launch, as the port's earlier times were taken
+   (``ms_one_launch``, beside the attention and WKV kernels' times before
+   their redesign, ``pr12_ms``).  The stencil's staged and direct kernels
+   are timed in turns (direct, staged, staged, direct), beside the staged
+   block's shared memory, the card's blocks per SM for it and the
+   estimator's wave;
+5. probe   — ``benchmarks/torch_stencil_probe.py`` at the stencil's main
+   shape: direct, copy-only, unclamped direct and staged kernels in turns.
 
 Then the ``nvidia-smi`` line, a ``kernels`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line, on
@@ -58,6 +68,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "benchmarks"))
 
 # Fails here, before any result, where the port is not beside this script.
 from repro_torch import _build  # noqa: E402
@@ -70,6 +81,10 @@ from repro_torch.kernels.attention import kernel as attn_kernel  # noqa: E402
 from repro_torch.kernels.lbm_d3q15 import kernel as lbm_kernel  # noqa: E402
 from repro_torch.kernels.stencil25 import kernel as st_kernel  # noqa: E402
 from repro_torch.kernels.wkv import kernel as wkv_kernel  # noqa: E402
+from repro_torch.core.machine import H100_SXM  # noqa: E402
+from repro_torch.core.waves import wave_size  # noqa: E402
+from repro_torch.kernels.stencil25.ref import star_offsets, star_weights_np  # noqa: E402
+import torch_stencil_probe as stencil_probe  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # H100 SXM, dense: f64 and f32 outside the tensor cores, bf16 on them
@@ -111,6 +126,8 @@ KERNELS = {  # name: (launch counter, CUDA source, TPU kernel it replaces)
     "wkv": (wkv_kernel.wkv_cuda, "src/repro_torch/csrc/wkv.cu",
             "src/repro/kernels/wkv/kernel.py:25"),
 }
+# launch counters of kernels that no main path may launch
+OFF_PATH = {"stencil25_direct": st_kernel.stencil25_direct_cuda}
 
 
 def emit(obj: dict) -> None:
@@ -178,12 +195,16 @@ def holds(res: dict) -> bool:
 
 
 def zero_counts() -> None:
-    for counter, _, _ in KERNELS.values():
+    for counter in [c for c, _, _ in KERNELS.values()] + list(OFF_PATH.values()):
         counter.launches = 0
 
 
 def read_counts() -> dict[str, int]:
-    return {name: counter.launches for name, (counter, _, _) in KERNELS.items()}
+    counts = {name: counter.launches for name, (counter, _, _) in KERNELS.items()}
+    off_path = {name: counter.launches for name, counter in OFF_PATH.items() if counter.launches}
+    if off_path:
+        fail(f"a main path launched kernels it must not: {off_path}")
+    return counts
 
 
 def nvidia_smi() -> str:
@@ -202,14 +223,20 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Builds the four kernels and the stencil probe's variants together;
+    returns the probe's libraries."""
     t0 = time.perf_counter()
+    probe_jobs = stencil_probe.start_builds()
     libs = _build.build(tuple(KERNELS))
+    probe_libs = stencil_probe.finish_builds(probe_jobs)
     wall = time.perf_counter() - t0
     regs = {}
     for dtype in (torch.float64, torch.float32, torch.bfloat16):
         for fold in st_kernel.FOLDS:
-            regs[f"stencil25 {str(dtype)[6:]} fold{fold}"] = st_kernel.kernel_attributes(dtype, fold)
+            for kind in ("staged", "direct"):
+                regs[f"stencil25 {kind} {str(dtype)[6:]} fold{fold}"] = \
+                    st_kernel.kernel_attributes(dtype, fold, staged=kind == "staged")
     for dtype in (torch.float64, torch.float32):
         regs[f"lbm_d3q15 {str(dtype)[6:]}"] = lbm_kernel.kernel_attributes(dtype)
     for dtype in (torch.float32, torch.bfloat16):
@@ -224,7 +251,9 @@ def phase_build() -> None:
         if attrs["local_bytes"]:
             print(f"chip_smoke: {name} spills {attrs['local_bytes']} B/thread", file=sys.stderr)
     hmma = {n: hmma_counts(lib.path) for n, lib in libs.items()}  # by kernel instantiation
-    emit({"phase": "build", "wall_s": wall,
+    stencil_f64_spills = {n: a["local_bytes"] for n, a in regs.items()
+                          if n.startswith("stencil25") and "float64" in n and a["local_bytes"]}
+    emit({"phase": "build", "wall_s": wall, "stencil25_f64_spills": stencil_f64_spills,
           "nvcc_s": {n: lib.build_seconds for n, lib in libs.items()},
           "ir_regs_per_thread": {"stencil25": appspec.star3d_ir((32, 4, 8)).regs_per_thread,
                                  "lbm_d3q15": appspec.lbm_d3q15_ir((32, 4, 4)).regs_per_thread},
@@ -235,6 +264,7 @@ def phase_build() -> None:
                if not hmma["flash_attention"].get(f"flash_tc_kernel<{bq},{bkv},{d}>")]
     if missing:
         fail(f"bf16 flash instantiations without tensor-core instructions: {missing}")
+    return probe_libs
 
 
 def hmma_counts(lib: Path) -> dict[str, int]:
@@ -269,20 +299,29 @@ def phase_check() -> None:
     gen = torch.Generator(device="cuda").manual_seed(1)
     res = {}
     space = stencil25.config_space(CHECK_SHAPE, 4, torch.float64)
+    kinds = {"staged": st_kernel.stencil25_cuda, "direct": st_kernel.stencil25_direct_cuda}
     for dtype, cfgs in ((torch.float64, space), (torch.float32, space[::27]),
                         (torch.bfloat16, space[13::27])):
         src = torch.randn(CHECK_SHAPE, generator=gen, device="cuda", dtype=torch.float64).to(dtype)
         plain = stencil25.stencil25_plain(src, 4)
-        err = max(max_err(stencil25.stencil25_cuda(src, 4, c["block"], c["fold"]), plain)
-                  for c in cfgs)
-        torch.cuda.synchronize()
-        res[f"stencil25 {str(dtype)[6:]}"] = {"configs": len(cfgs), "max_abs_err": err,
-                                              "tol": TOL[dtype]}
+        for kind, fn in kinds.items():
+            err = max(max_err(fn(src, 4, c["block"], c["fold"]), plain) for c in cfgs)
+            torch.cuda.synchronize()
+            res[f"stencil25 {kind} {str(dtype)[6:]}"] = {"configs": len(cfgs), "max_abs_err": err,
+                                                         "tol": TOL[dtype]}
     for r in (1, 2, 8):
         src = torch.randn(CHECK_SHAPE, generator=gen, device="cuda", dtype=torch.float64)
-        err = max_err(stencil25.stencil25_cuda(src, r, (32, 4, 8), (1, 1, 2)),
-                      stencil25.stencil25_plain(src, r))
-        res[f"stencil25 float64 r={r}"] = {"configs": 1, "max_abs_err": err, "tol": TOL[torch.float64]}
+        plain = stencil25.stencil25_plain(src, r)
+        for kind, fn in kinds.items():
+            err = max(max_err(fn(src, r, block, fold), plain)
+                      for block, fold in (((32, 4, 8), (1, 1, 2)), ((16, 8, 8), (1, 2, 1))))
+            res[f"stencil25 {kind} float64 r={r}"] = {"configs": 2, "max_abs_err": err,
+                                                      "tol": TOL[torch.float64]}
+    src = torch.randn(CHECK_SHAPE, generator=gen, device="cuda", dtype=torch.float64)
+    inner = (slice(4, -4),) * 3
+    res["stencil25 yardstick conv3d float64 interior"] = {
+        "configs": 1, "max_abs_err": max_err(conv3d_star(src, 4), stencil25.stencil25_plain(src, 4)[inner]),
+        "tol": TOL[torch.float64]}
     lspace = lbm.config_space(CHECK_SHAPE, torch.float64)
     for dtype, cfgs in ((torch.float64, lspace), (torch.float32, lspace[::8])):
         f, phase, vel = lbm.init_fields(CHECK_SHAPE, seed=2, dtype=dtype)
@@ -378,6 +417,26 @@ def bound_ms(n_bytes: float, flops: float, dtype) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def conv3d_star(src: torch.Tensor, r: int) -> torch.Tensor:
+    """The stencil's yardstick: one ``conv3d`` call with the star's weights
+    in a (2r + 1)^3 kernel, zeros elsewhere.  It computes the interior
+    ``[r:-r]^3`` that the TPU kernel defines; the port never calls it."""
+    w = torch.zeros((2 * r + 1,) * 3, dtype=src.dtype, device=src.device)
+    for k, (dz, dy, dx) in enumerate(star_offsets(r)):
+        w[r + dz, r + dy, r + dx] = float(star_weights_np(r)[k])
+    return torch.nn.functional.conv3d(src[None, None], w[None, None])[0, 0]
+
+
+def in_turns(fns: dict, reps: int = REPS) -> dict[str, list[float]]:
+    """``time_ms`` of each function, forward and then in reverse order
+    (a, b, b, a), so that both readings of each come from one card."""
+    names = list(fns)
+    times = {n: [] for n in names}
+    for n in names + names[::-1]:
+        times[n].append(time_ms(fns[n], reps=reps))
+    return times
+
+
 def phase_main_paper() -> list[dict]:
     """The paper's loop: stencil25 and three LBM steps, block=None."""
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -405,18 +464,39 @@ def phase_main_paper() -> list[dict]:
         fail("stencil output is not finite or has the wrong shape")
     plain = stencil25.stencil25_plain(src, 4)
     err = max_err(dst, plain)
+    library = {"library_ms": None}
+    try:  # one PyTorch call for the interior; may need more memory than the card has
+        library["library_max_abs_err"] = max_err(conv3d_star(src, 4), plain[(slice(4, -4),) * 3])
+        library["library_ms"] = time_ms(lambda: conv3d_star(src, 4), reps=5, warmup=1)
+    except RuntimeError as exc:
+        library["library_error"] = str(exc).splitlines()[0][:300]
+        torch.cuda.empty_cache()
     del plain
     cells = src.numel()
-    ms = time_ms(lambda: stencil25.stencil25_cuda(src, 4, cfg["block"], cfg["fold"]))
-    one_ms = time_one_launch_ms(lambda: stencil25.stencil25_cuda(src, 4, cfg["block"], cfg["fold"]))
+    block, fold = cfg["block"], cfg["fold"]
+    turns = in_turns({"direct": lambda: st_kernel.stencil25_direct_cuda(src, 4, block, fold),
+                      "staged": lambda: stencil25.stencil25_cuda(src, 4, block, fold)})
+    ms, direct_ms = statistics.mean(turns["staged"]), statistics.mean(turns["direct"])
+    one_ms = time_one_launch_ms(lambda: stencil25.stencil25_cuda(src, 4, block, fold))
     plain_ms = time_ms(lambda: stencil25.stencil25_plain(src, 4), reps=5, warmup=1)
     copy_ms = time_ms(lambda: dst.copy_(src))
     b_ms, b_by = bound_ms(cells * STENCIL_BYTES_PER_CELL, cells * (2 * 25 - 1), torch.float64)
+    spec = appspec.star3d(**cfg)
     out.append({"name": "stencil25", "shape": STENCIL_SHAPE, "dtype": "float64",
-                "block": cfg["block"], "fold": cfg["fold"], "predicted_glups": pred.glups,
-                "predicted_limiter": pred.limiter, "ms": ms, "ms_one_launch": one_ms,
-                "measured_glups": cells / ms / 1e6,
-                "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms, "copy_ms": copy_ms,
+                "block": block, "fold": fold, "predicted_glups": pred.glups,
+                "predicted_limiter": pred.limiter, "ms": ms, "ms_turns": turns["staged"],
+                "direct_ms": direct_ms, "direct_ms_turns": turns["direct"],
+                "ms_one_launch": one_ms, "measured_glups": cells / ms / 1e6,
+                "direct_glups": cells / direct_ms / 1e6,
+                "prediction_error": pred.glups / (cells / ms / 1e6),
+                "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+                "plain_ms": plain_ms, "copy_ms": copy_ms, **library,
+                "smem_bytes": st_kernel.smem_bytes(block, fold, 4, src.dtype),
+                "blocks_per_sm": st_kernel.blocks_per_sm(src.dtype, block, fold, 4),
+                "model_blocks_per_sm": H100_SXM.blocks_per_sm(1024, spec.regs_per_thread),
+                "model_wave_blocks": wave_size(spec, H100_SXM),
+                "registers": st_kernel.kernel_attributes(src.dtype, fold)["registers"],
+                "direct_registers": st_kernel.kernel_attributes(src.dtype, fold, staged=False)["registers"],
                 "max_abs_err": err, "launches": launches["stencil25"]})
     del src, dst
 
@@ -448,6 +528,17 @@ def phase_main_paper() -> list[dict]:
     if bad:
         fail(f"main-path outputs disagree with the plain versions: {bad}")
     return out
+
+
+def phase_probe(libs: dict) -> dict:
+    """The stencil probe's variants in turns at the stencil's main shape."""
+    res = stencil_probe.run(libs)
+    emit({"phase": "probe", **res})
+    bad = {n: res[n]["max_abs_err"] for n in ("direct", "unclamped", "staged")
+           if not res[n]["max_abs_err"] <= TOL[torch.float64]}
+    if bad:
+        fail(f"stencil probe variants disagree with the plain version: {bad}")
+    return res
 
 
 def phase_main_attention() -> dict:
@@ -547,11 +638,13 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     smi = phase_device()
-    phase_build()
+    probe_libs = phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' products in full f32
     torch.backends.cudnn.allow_tf32 = False
     phase_check()
-    main_results = phase_main_paper() + [phase_main_attention(), phase_main_wkv()]
+    main_results = phase_main_paper()
+    phase_probe(probe_libs)
+    main_results += [phase_main_attention(), phase_main_wkv()]
     kernels = [{"name": r["name"], "route": "cuda", "source": KERNELS[r["name"]][1],
                 "replaces": KERNELS[r["name"]][2], "launches": r["launches"],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],

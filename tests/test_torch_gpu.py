@@ -19,7 +19,8 @@ from repro_torch.kernels.attention.kernel import HEAD_DIMS, TILES
 from repro_torch.kernels.lbm_d3q15 import config_space as lbm_space
 from repro_torch.kernels.lbm_d3q15 import init_fields, lbm_d3q15_cuda, lbm_step, lbm_step_plain
 from repro_torch.kernels.stencil25 import config_space as stencil_space
-from repro_torch.kernels.stencil25 import stencil25, stencil25_cuda, stencil25_plain
+from repro_torch.kernels.stencil25 import stencil25, stencil25_cuda, stencil25_direct_cuda, stencil25_plain
+from repro_torch.kernels.stencil25.kernel import blocks_per_sm
 from repro_torch.kernels.wkv import wkv, wkv_cuda, wkv_plain
 from repro_torch.kernels.wkv.kernel import CHUNKS
 from repro_torch.kernels.wkv.kernel import HEAD_DIMS as WKV_HEAD_DIMS
@@ -43,14 +44,24 @@ def _err(a, b):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
 def test_stencil_kernel_matches_plain_on_every_config(cuda, dtype):
+    """Both stencil kernels, the staged one (the main path's) and the direct one."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     src = torch.randn(SHAPE, generator=gen, device=cuda, dtype=torch.float64).to(dtype)
     for r in (1, 4):
         plain = stencil25_plain(src, r)
         for cfg in stencil_space(SHAPE, r, dtype):
-            out = stencil25_cuda(src, r, cfg["block"], cfg["fold"])
-            assert out.dtype == dtype and out.shape == src.shape
-            assert _err(out, plain) <= TOL[dtype], cfg
+            for kernel in (stencil25_cuda, stencil25_direct_cuda):
+                out = kernel(src, r, cfg["block"], cfg["fold"])
+                assert out.dtype == dtype and out.shape == src.shape
+                assert _err(out, plain) <= TOL[dtype], (kernel.__name__, cfg)
+
+
+def test_staged_footprint_fits_every_config(cuda):
+    """The card holds at least one block of every configuration with its
+    shared memory, in every type."""
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
+        for cfg in stencil_space((64, 64, 64), 4, dtype):
+            assert blocks_per_sm(dtype, cfg["block"], cfg["fold"]) >= 1, (dtype, cfg)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -125,9 +136,10 @@ def test_wkv_kernel_matches_plain_at_s1024(cuda, chunk, kd):
 
 def test_cuda_tensors_always_launch(cuda):
     src = torch.randn((16, 16, 32), device=cuda, dtype=torch.float64)
-    n = stencil25_cuda.launches
-    stencil25(src)  # block=None: estimator-picked
+    n, n_direct = stencil25_cuda.launches, stencil25_direct_cuda.launches
+    stencil25(src)  # block=None: estimator-picked, the staged kernel
     assert stencil25_cuda.launches == n + 1
+    assert stencil25_direct_cuda.launches == n_direct
     f, phase, vel = init_fields((8, 8, 16), dtype=torch.float64, device=cuda)
     n = lbm_d3q15_cuda.launches
     lbm_step(f, phase, vel)
@@ -152,6 +164,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         stencil25_cuda(src.half(), 4)
     with pytest.raises(ValueError):
         stencil25_cuda(src.transpose(0, 2).contiguous().transpose(0, 2), 4)
+    with pytest.raises(ValueError):  # a footprint of 278,592 B
+        stencil25_cuda(torch.randn((8, 2048, 8), device=cuda, dtype=torch.float64), 4,
+                       (1, 1024, 1), (1, 2, 1))
     f, phase, vel = init_fields((8, 8, 16), device=cuda)
     with pytest.raises(ValueError):
         lbm_d3q15_cuda(f, phase, vel, block=(32, 4, 8))  # 1024 > 512 threads

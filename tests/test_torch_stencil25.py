@@ -6,11 +6,15 @@ Pallas kernel in interpret mode, and ``stencil25_ref``) and through the
 port's plain PyTorch version, which is what the port's wrapper runs on a CPU
 tensor.  Tolerances: f32 3e-5 and bf16 4e-2 (those of
 ``tests/test_kernels.py``), f64 1e-12 against a numpy computation.  The CUDA
-kernel itself is held against the plain version on the card
-(``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+kernels themselves are held against the plain version on the card
+(``tests/test_torch_gpu.py``, ``chip_smoke.py``); here the staged kernel's
+shared-memory layout and addressing are rebuilt in torch from the formulas of
+``csrc/stencil25.cu`` and held against the plain version and the JAX package
+(f64 1e-10, f32 3e-5).
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,14 +25,17 @@ from repro.kernels.stencil25 import stencil25_ref
 from repro.kernels.stencil25.ref import star_offsets as jax_star_offsets
 from repro.kernels.stencil25.ref import star_weights as jax_star_weights
 from repro_torch import convert
+from repro_torch.core.appspec import stencil_config_space
 from repro_torch.kernels.launch import launch_geometry
 from repro_torch.kernels.stencil25 import (
     config_space,
     select_block,
     stencil25,
     stencil25_cuda,
+    stencil25_direct_cuda,
     stencil25_plain,
 )
+from repro_torch.kernels.stencil25.kernel import MAX_SMEM_BYTES, smem_bytes
 from repro_torch.kernels.stencil25.ref import star_offsets, star_weights_np
 
 TOL = {jnp.float32: 3e-5, jnp.bfloat16: 4e-2}
@@ -145,9 +152,9 @@ def test_launch_geometry_rejects_what_cannot_launch():
 
 def test_entry_point_selects_and_runs_plain_on_cpu():
     src = torch.from_numpy(np.random.default_rng(15).normal(size=(16, 16, 32)))
-    before = stencil25_cuda.launches
+    before = stencil25_cuda.launches, stencil25_direct_cuda.launches
     out = stencil25(src)  # block=None: the estimator picks (block, fold)
-    assert stencil25_cuda.launches == before  # the CPU path launches nothing
+    assert (stencil25_cuda.launches, stencil25_direct_cuda.launches) == before  # the CPU path launches nothing
     assert torch.equal(out, stencil25_plain(src, 4))
     cfg, pred = select_block((16, 16, 32), 4, torch.float64)
     assert cfg in config_space((16, 16, 32), 4, torch.float64)
@@ -159,3 +166,134 @@ def test_entry_point_selects_and_runs_plain_on_cpu():
 def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         stencil25_cuda(torch.empty((8, 8, 8), device="meta"))
+    with pytest.raises(ValueError):
+        stencil25_direct_cuda(torch.empty((8, 8, 8), device="meta"))
+
+
+def test_direct_wrapper_runs_plain_on_cpu():
+    src = torch.from_numpy(np.random.default_rng(16).normal(size=(8, 10, 12)))
+    assert torch.equal(stencil25_direct_cuda(src, 2, (4, 2, 2), (1, 2, 1)), stencil25_plain(src, 2))
+
+
+# ---- the staged kernel's footprint in shared memory -----------------------------
+
+
+def _star_footprint(cells: tuple[int, int, int], r: int) -> int:
+    """Points of the grid that the range-r star of a (Cx, Cy, Cz) cell box
+    reads, counted on a mask of the box padded by r."""
+    cx, cy, cz = cells
+    mask = np.zeros((cz + 2 * r, cy + 2 * r, cx + 2 * r), bool)
+    for dz, dy, dx in star_offsets(r):
+        mask[r + dz : r + dz + cz, r + dy : r + dy + cy, r + dx : r + dx + cx] = True
+    return int(mask.sum())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cfg", stencil_config_space(), ids=lambda c: f"{c['block']}-{c['fold']}")
+def test_smem_bytes_is_the_star_footprint(cfg, dtype):
+    r = 4
+    cx, cy, cz = (b * f for b, f in zip(cfg["block"], cfg["fold"]))
+    count = cx * cy * cz + 2 * r * (cy * cz + cx * cz + cx * cy)
+    n_bytes = smem_bytes(cfg["block"], cfg["fold"], r, dtype)
+    assert n_bytes == count * dtype.itemsize == _star_footprint((cx, cy, cz), r) * dtype.itemsize
+    assert n_bytes <= MAX_SMEM_BYTES
+
+
+def _staged_block(src: torch.Tensor, r: int, block, fold, origin, weights) -> tuple:
+    """One block of the staged kernel, rebuilt from ``csrc/stencil25.cu``'s
+    formulas: the footprint copied into a flat buffer (X box, Y arms, Z arms,
+    x fastest, every source index clamped), then each cell's 6r + 1 points
+    read by the kernel's indices, summed in its order.  Returns the cells'
+    grid coordinates (x, y, z) and their values."""
+    nz, ny, nx = src.shape
+    cx, cy, cz = (b * f for b, f in zip(block, fold))
+    x0, y0, z0 = origin
+    pitch, n_x, n_y = cx + 2 * r, (cx + 2 * r) * cy * cz, cx * 2 * r * cz
+
+    def box(gx0, gy0, gz0, w, h, d, ygap, yskip, zgap, zskip):
+        z, y, x = torch.meshgrid(torch.arange(d), torch.arange(h), torch.arange(w), indexing="ij")
+        gz = (gz0 + z + torch.where(z >= zgap, zskip, 0)).clamp(0, nz - 1)
+        gy = (gy0 + y + torch.where(y >= ygap, yskip, 0)).clamp(0, ny - 1)
+        gx = (gx0 + x).clamp(0, nx - 1)
+        return src[gz, gy, gx].reshape(-1)
+
+    smem = torch.cat([
+        box(x0 - r, y0, z0, pitch, cy, cz, cy, 0, cz, 0),
+        box(x0, y0 - r, z0, cx, 2 * r, cz, r, cy, cz, 0),
+        box(x0, y0, z0 - r, cx, cy, 2 * r, cy, 0, r, cz),
+    ])
+    assert smem.numel() * src.element_size() == smem_bytes(block, fold, r, src.dtype)
+    lz, ly, lx = torch.meshgrid(torch.arange(cz), torch.arange(cy), torch.arange(cx), indexing="ij")
+    lz, ly, lx = lz.reshape(-1), ly.reshape(-1), lx.reshape(-1)
+    c = (lz * cy + ly) * pitch + lx + r
+    yhi = n_x + (lz * 2 * r + ly - cy + r) * cx + lx
+    ylo = n_x + (lz * 2 * r + ly + r) * cx + lx
+    zhi = n_x + n_y + ((lz - cz + r) * cy + ly) * cx + lx
+    zlo = n_x + n_y + ((lz + r) * cy + ly) * cx + lx
+
+    def y_at(d):
+        return torch.where(ly + d < cy, c + d * pitch, yhi + d * cx) if d > 0 else \
+            torch.where(ly + d >= 0, c + d * pitch, ylo + d * cx)
+
+    def z_at(d):
+        return torch.where(lz + d < cz, c + d * pitch * cy, zhi + d * cx * cy) if d > 0 else \
+            torch.where(lz + d >= 0, c + d * pitch * cy, zlo + d * cx * cy)
+
+    # the fold pair's shared reads: cell 0's +d neighbour along the fold axis
+    # is cell 1's d - 1 one, cell 1's -d neighbour cell 0's d - 1 one
+    at, local = {(1, 2, 1): (y_at, ly), (1, 1, 2): (z_at, lz)}.get(tuple(fold), (None, None))
+    if at is not None:
+        first = local % 2 == 0
+
+        def along(d):  # the neighbour d away along the fold axis; d = 0 is the cell
+            return c if d == 0 else at(d)
+
+        for d in range(1, r + 1):
+            assert torch.equal(along(d)[first], along(d - 1)[~first])
+            assert torch.equal(along(-d)[~first], along(-(d - 1))[first])
+    acc = weights[0] * smem[c]
+    for d in range(1, r + 1):
+        k = 6 * d - 5
+        for j, idx in enumerate((c + d, c - d, y_at(d), y_at(-d), z_at(d), z_at(-d))):
+            acc = acc + weights[k + j] * smem[idx]
+    return (x0 + lx, y0 + ly, z0 + lz), acc
+
+
+STAGED_CASES = [  # (block, fold): each ragged on the grid below; the last has the largest footprint
+    ((32, 2, 16), (1, 2, 1)), ((32, 4, 8), (1, 1, 1)), ((32, 8, 4), (1, 1, 2)),
+    ((16, 8, 8), (1, 2, 1)), ((64, 16, 1), (1, 1, 1)), ((8, 2, 64), (1, 1, 2)),
+    ((4, 4, 64), (1, 2, 1)), ((128, 8, 1), (1, 2, 1)), ((2, 32, 16), (1, 1, 2)),
+    ((256, 1, 4), (1, 1, 1)), ((512, 2, 1), (1, 1, 2)), ((2, 512, 1), (1, 2, 1)),
+]
+STAGED_SHAPE = (14, 22, 41)  # (nz, ny, nx): no cell box of the cases divides it
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_staged_layout_matches_plain_and_jax(dtype):
+    r = 4
+    src_np = np.random.default_rng(17).normal(size=STAGED_SHAPE)
+    src = torch.from_numpy(src_np).to(dtype)
+    weights = torch.from_numpy(star_weights_np(r)).to(dtype)
+    plain = stencil25_plain(src, r)
+    with jax.enable_x64(dtype == torch.float64):
+        ref = np.asarray(stencil25_ref(jnp.asarray(src_np, {torch.float64: jnp.float64,
+                                                            torch.float32: jnp.float32}[dtype]), r=r))
+    tol = {torch.float64: 1e-10, torch.float32: 3e-5}[dtype]
+    nz, ny, nx = STAGED_SHAPE
+    for block, fold in STAGED_CASES:
+        assert {"block": block, "fold": fold} in stencil_config_space()
+        _, grid = launch_geometry(STAGED_SHAPE, block, fold)
+        cells = [b * f for b, f in zip(block, fold)]
+        assert any(n % c for n, c in zip((nx, ny, nz), cells))
+        out = torch.full_like(src, float("nan"))
+        for bz in range(grid[2]):
+            for by in range(grid[1]):
+                for bx in range(grid[0]):
+                    origin = (bx * cells[0], by * cells[1], bz * cells[2])
+                    (x, y, z), val = _staged_block(src, r, block, fold, origin, weights)
+                    keep = (x < nx) & (y < ny) & (z < nz)  # the kernel masks the ragged edge
+                    out[z[keep], y[keep], x[keep]] = val[keep]
+        assert not torch.isnan(out).any(), (block, fold)
+        assert float((out - plain).abs().max()) <= tol, (block, fold)
+        inner = (slice(r, -r),) * 3
+        np.testing.assert_allclose(out.numpy()[inner], ref[inner], rtol=tol, atol=tol)
