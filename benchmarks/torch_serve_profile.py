@@ -1,0 +1,158 @@
+#!/usr/bin/env python3
+"""Where the serving path's time goes on the card: a profiler trace of the
+prefill and of the decode steps.
+
+    python3 benchmarks/torch_serve_profile.py
+
+Needs an NVIDIA card and the CUDA toolkit (the port's kernels build on first
+use).  For each of Qwen2.5-14B and RWKV6-1.6B at full width (the shapes of
+``chip_smoke.py``'s serve paths: 4 requests of 512 prompt tokens, greedy),
+it builds the model with ``repro_torch.models.build_model``, warms up with
+one prefill and two decode steps, then:
+
+* times one prefill and ``STEPS`` decode steps with CUDA events, no profiler;
+* traces the same under ``torch.profiler`` (CPU and CUDA), one trace per
+  phase, and reads from each trace the device's busy time (the union of its
+  kernel, copy and fill intervals), the span from the first device interval
+  to the last, the idle share of that span, the kernels by total time, and
+  the host-to-device copies and synchronising runtime calls the host made.
+
+The profiler adds host time to every operator, so the traced spans are
+longer than the untraced times; the device intervals themselves are the
+card's.  One JSON line per (model, phase), then the card's name and power
+limit.  Nothing is written outside ``build/`` (the traces, deleted after
+reading).
+"""
+from __future__ import annotations
+
+import gc
+import json
+import subprocess
+import sys
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.serve.engine import ServeEngine  # noqa: E402
+
+ARCHS = ("qwen2.5-14b", "rwkv6-1.6b")
+REQUESTS, PROMPT_LEN, STEPS = 4, 512, 8
+TRACE = ROOT / "build" / "serve_profile_trace.json"
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy", "cudaMemcpyAsync")
+
+
+def events_ms(fn) -> float:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def union_us(intervals: list[tuple[float, float]]) -> float:
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def read_trace(path: Path) -> dict:
+    """Device busy time, span and idle share, kernels by time, copies and
+    synchronising calls, from a Chrome trace of ``torch.profiler``."""
+    events = json.loads(path.read_text())["traceEvents"]
+    device = [e for e in events if e.get("cat") in DEVICE_CATS and "dur" in e]
+    intervals = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in device]
+    busy = union_us(intervals)
+    span = (max(e for _, e in intervals) - min(s for s, _ in intervals)) if intervals else 0.0
+    by_name = defaultdict(lambda: [0, 0.0])
+    for e in device:
+        by_name[e["name"]][0] += 1
+        by_name[e["name"]][1] += float(e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    runtime = defaultdict(int)
+    for e in events:
+        if e.get("cat") == "cuda_runtime" and e.get("name") in SYNC_CALLS:
+            runtime[e["name"]] += 1
+    return {
+        "device_busy_ms": busy / 1e3, "device_span_ms": span / 1e3,
+        "idle_share": 1.0 - busy / span if span else None,
+        "kernels": sum(1 for e in device if e["cat"] == "kernel"),
+        "memcpy_htod": sum(1 for e in device if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]),
+        "sync_calls": dict(runtime),
+        "top": [{"name": n[:120], "count": c, "ms": t / 1e3} for n, (c, t) in top],
+    }
+
+
+def traced(fn) -> dict:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    TRACE.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(TRACE))
+    try:
+        return read_trace(TRACE)
+    finally:
+        TRACE.unlink(missing_ok=True)
+
+
+def profile_arch(arch: str) -> None:
+    cfg = get_arch(arch)
+    model = build_model(cfg, device="cuda", seed=0)
+    engine = ServeEngine(model, max_len=PROMPT_LEN + STEPS + 8)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(REQUESTS, PROMPT_LEN)).astype(np.int32)
+    tok, cache = engine.prefill(prompts)  # warm-up: cuBLAS handles, kernel builds
+    engine.decode(tok, cache, 2)
+    state = {}
+
+    def prefill():
+        state["tok"], state["cache"] = engine.prefill(prompts)
+
+    def decode():
+        engine.decode(state["tok"], state["cache"], STEPS)
+
+    for phase, fn, per in (("prefill", prefill, 1), ("decode", decode, STEPS)):
+        ms = events_ms(fn)
+        if phase == "prefill":
+            res = traced(prefill)
+        else:
+            prefill()  # a fresh cache for the traced steps
+            res = traced(decode)
+        per_step = {k: (v / per if isinstance(v, float) else v) for k, v in res.items()
+                    if k in ("device_busy_ms", "device_span_ms")}
+        print(json.dumps({"arch": cfg.name, "phase": phase, "steps": per, "untraced_ms": ms,
+                          "untraced_ms_per_step": ms / per, "per_step": per_step, **res}), flush=True)
+    del model, engine, state, tok, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_serve_profile: needs a CUDA card", file=sys.stderr)
+        return 1
+    for arch in ARCHS:
+        profile_arch(arch)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

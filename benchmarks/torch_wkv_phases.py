@@ -68,7 +68,10 @@ def build(name: str, src: str) -> ctypes.CDLL:
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
     lib.wkv_launch.restype = ctypes.c_int
-    lib.wkv_launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.wkv_launch.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    )
     return lib
 
 
@@ -84,7 +87,8 @@ def main() -> int:
     wlog = -torch.exp(torch.randn(SHAPE, generator=gen, device="cuda").clamp(-8, 4))
     u = torch.randn((kd,), generator=gen, device="cuda")
     out, state = torch.empty_like(r), torch.empty((bh, kd, kd), device="cuda")
-    ptrs = [t.data_ptr() for t in (r, k, v, wlog, u, out, state)]
+    # one u for all rows (u_rows = 1), zero initial state (s0 null)
+    ptrs = [t.data_ptr() for t in (r, k, v, wlog, u)] + [1, None, out.data_ptr(), state.data_ptr()]
     for chunk in CHUNKS:
         row = {"chunk": chunk, "shape": SHAPE}
         for name, lib in (("ms", plain), ("clocked_ms", clocked)):

@@ -27,9 +27,12 @@ with the tile or chunk fixed by measurement.  Phases, one JSON line each:
    (Hq, Hkv) = (10, 2), causal, where rows from 1024 on exist; every
    compiled WKV (chunk, K), output and final state, at S = 128 and at
    S = 1024 (64 chunks of 16, so the double buffer turns over many times).
-   Limits: max abs error f64 1e-10, f32 3e-5, bf16 4e-2, and elementwise
-   ``|a - b| <= atol + rtol |b|`` for bf16 attention (``ATTN_RULE``) and
-   WKV (``WKV_RULE``);
+   Every compiled WKV (chunk, K) again with a bonus per head and a random
+   initial state (the models' form), and the model's own kernel calls at
+   S = 100 (padded to 128 for attention, 112 for WKV) against the plain
+   versions on the unpadded inputs.  Limits: max abs error f64 1e-10, f32
+   3e-5, bf16 4e-2, and elementwise ``|a - b| <= atol + rtol |b|`` for bf16
+   attention (``ATTN_RULE``) and WKV (``WKV_RULE``);
 4. main    — ``stencil25(src)`` at (512, 512, 640) f64 and ``lbm_step`` at
    (256, 256, 512) f64, each with ``block=None``; then ``flash_attention``
    at (B, Hq, Hkv, S, D) = (1, 40, 8, 4096, 128) bf16 causal and ``wkv`` at
@@ -46,7 +49,19 @@ with the tile or chunk fixed by measurement.  Phases, one JSON line each:
    block's shared memory, the card's blocks per SM for it and the
    estimator's wave;
 5. probe   — ``benchmarks/torch_stencil_probe.py`` at the stencil's main
-   shape: direct, copy-only, unclamped direct and staged kernels in turns.
+   shape: direct, copy-only, unclamped direct and staged kernels in turns;
+6. serve   — ``repro_torch.launch.serve.serve`` on the card at full width:
+   Qwen2.5-14B (all 48 layers, f32 parameters, bf16 compute) and then
+   RWKV6-1.6B (all 24 layers), each answering 4 requests of 512 prompt
+   tokens with 16 new tokens, greedy, parameters drawn on the card from a
+   seeded generator.  The prefill must launch ``flash_attention`` (Qwen) or
+   ``wkv`` (RWKV) once per layer and the decode neither.  The inputs the
+   model fed the kernel at the first and the last layer are held, kernel
+   against plain version: attention by ``ATTN_RULE``; WKV by
+   ``WKV_SCALED_RULE`` (see there), with ``WKV_RULE``'s reading and the f32
+   plain version's reading against an f64 one beside it.  Prefill and decode
+   times (CUDA events), tokens per second, peak memory and the decode step
+   against its weight-bytes bound.
 
 Then the ``nvidia-smi`` line, a ``kernels`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line, on
@@ -54,6 +69,7 @@ any failure and where CUDA or the port is missing.
 """
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import math
@@ -72,6 +88,7 @@ sys.path.insert(0, str(ROOT / "benchmarks"))
 
 # Fails here, before any result, where the port is not beside this script.
 from repro_torch import _build  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import appspec  # noqa: E402
 from repro_torch.kernels import attention  # noqa: E402
 from repro_torch.kernels import lbm_d3q15 as lbm  # noqa: E402
@@ -84,6 +101,10 @@ from repro_torch.kernels.wkv import kernel as wkv_kernel  # noqa: E402
 from repro_torch.core.machine import H100_SXM  # noqa: E402
 from repro_torch.core.waves import wave_size  # noqa: E402
 from repro_torch.kernels.stencil25.ref import star_offsets, star_weights_np  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.models import registry as model_registry  # noqa: E402
+from repro_torch.models import rwkv6 as model_rwkv6  # noqa: E402
 import torch_stencil_probe as stencil_probe  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -111,6 +132,23 @@ WKV_CHECK_SHAPES = ((3, 128), (5, 1024))  # (BH, S)
 # WKV: the JAX test's rtol = atol = 5e-4.
 ATTN_RULE = (2e-3, 1e-2)
 WKV_RULE = (5e-4, 5e-4)
+# The WKV rule in units of the data's scale: |a - b| <= atol rms(b) + rtol |b|,
+# for the inputs the full-width models feed the kernel.  There the outputs
+# are thousands (r, k, v about 9 from the reference's fan-in rule), and some
+# cancel to near zero, where atol 5e-4 is below one f32 rounding of the
+# terms summed: the f32 stepwise plain version itself reads above 1 against
+# an f64 one by WKV_RULE (the serve line's ``plain_vs_f64_ratio``), so no
+# f32 kernel could meet it.  At the check phase's unit-scale inputs rms(out)
+# is 6 to 12, and WKV_RULE holds there as it is.
+WKV_SCALED_RULE = (5e-4, 5e-4)
+WKV_CHECK_HEADS = 3  # heads of the per-head bonus in the check phase: BH = 6
+MODEL_CHECK_SEQ = 100  # the model's kernel calls padded: to 128 (attention), 112 (WKV)
+SERVE = {  # main path: (config, the kernel its prefill must launch once per layer)
+    "serve_qwen": ("qwen2.5-14b", "flash_attention"),
+    "serve_rwkv": ("rwkv6-1.6b", "wkv"),
+}
+SERVE_SHAPE = {"requests": 4, "prompt_len": 512, "steps": 16}
+OWN_PATH = {"stencil25": "paper", "lbm_d3q15": "paper", "flash_attention": "attention", "wkv": "wkv"}
 WKV_FLOPS_PER_TOKEN = 6  # times K^2 per head: the stepwise recurrence
 # the attention and WKV kernels' times at the main shapes before their
 # redesign for Hopper (f32 scalar kernels; NVIDIA H100 80GB HBM3, 700 W),
@@ -335,6 +373,8 @@ def phase_check() -> None:
                                               "tol": TOL[dtype]}
     res.update(check_attention(gen))
     res.update(check_wkv(gen))
+    res.update(check_wkv_heads(gen))
+    res.update(check_model_padded(gen))
     emit({"phase": "check", "shape": CHECK_SHAPE, "results": res})
     bad = {k: v for k, v in res.items() if not holds(v)}
     if bad:
@@ -385,20 +425,71 @@ def wkv_inputs(gen: torch.Generator, bh: int, seq: int, kd: int) -> tuple[torch.
     return r, k, v, wlog, torch.randn((kd,), generator=gen, device="cuda")
 
 
+def wkv_reading(got: tuple, plain: tuple) -> dict:
+    """(out, state) of a kernel against the plain version's, by ``WKV_RULE``."""
+    return {"max_abs_err": max(max_err(a, b) for a, b in zip(got, plain)),
+            "max_ratio": max(rule_ratio(a, b, WKV_RULE) for a, b in zip(got, plain)),
+            "rule": rule_text(WKV_RULE)}
+
+
+def attn_reading(got: torch.Tensor, plain: torch.Tensor) -> dict:
+    """bf16 attention against the plain version: max abs error within
+    ``TOL[bf16]`` and ``ATTN_RULE``."""
+    return {"max_abs_err": max_err(got, plain), "tol": TOL[torch.bfloat16],
+            "max_ratio": rule_ratio(got, plain, ATTN_RULE), "rule": rule_text(ATTN_RULE)}
+
+
 def check_wkv(gen: torch.Generator) -> dict:
     """Every compiled (chunk, K), output and final state, against
     ``wkv_plain`` by the elementwise rule, at each of ``WKV_CHECK_SHAPES``."""
     res = {}
     for (bh, seq), kd in itertools.product(WKV_CHECK_SHAPES, wkv_kernel.HEAD_DIMS):
         inputs = wkv_inputs(gen, bh, seq, kd)
-        plain_out, plain_state = wkv.wkv_plain(*inputs)
+        plain = wkv.wkv_plain(*inputs)
         for chunk in wkv_kernel.CHUNKS:
-            out, state = wkv_kernel.wkv_cuda(*inputs, chunk=chunk)
-            res[f"wkv L{chunk} K{kd} S{seq}"] = {
-                "max_abs_err": max(max_err(out, plain_out), max_err(state, plain_state)),
-                "max_ratio": max(rule_ratio(out, plain_out, WKV_RULE),
-                                 rule_ratio(state, plain_state, WKV_RULE)),
-                "rule": rule_text(WKV_RULE)}
+            res[f"wkv L{chunk} K{kd} S{seq}"] = wkv_reading(wkv_kernel.wkv_cuda(*inputs, chunk=chunk), plain)
+    return res
+
+
+def check_wkv_heads(gen: torch.Generator) -> dict:
+    """Every compiled (chunk, K) in the models' form: a bonus per head
+    (row bh % H) and a random initial state, against ``wkv_plain``."""
+    res = {}
+    bh = 2 * WKV_CHECK_HEADS
+    for kd in wkv_kernel.HEAD_DIMS:
+        r, k, v, wlog, _ = wkv_inputs(gen, bh, 128, kd)
+        u = torch.randn((WKV_CHECK_HEADS, kd), generator=gen, device="cuda")
+        s0 = torch.randn((bh, kd, kd), generator=gen, device="cuda")
+        plain = wkv.wkv_plain(r, k, v, wlog, u, s0)
+        for chunk in wkv_kernel.CHUNKS:
+            res[f"wkv per-head u, s0 L{chunk} K{kd} S128"] = wkv_reading(
+                wkv_kernel.wkv_cuda(r, k, v, wlog, u, chunk=chunk, s0=s0), plain)
+    return res
+
+
+def check_model_padded(gen: torch.Generator) -> dict:
+    """The model's own kernel calls at S = ``MODEL_CHECK_SEQ``, which they pad
+    (attention to 128, WKV to 112), against the plain versions on the
+    unpadded inputs: attention at Qwen2.5-14B's head dim and group of 5 in
+    bf16, WKV at RWKV6-1.6B's head size with a bonus per head and an initial
+    state."""
+    seq = MODEL_CHECK_SEQ
+    q = torch.randn((2, seq, 10, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((2, seq, 2, 128), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+    out = model_layers.attention(q, k, v)
+    plain = attention.mha_plain(*(a.transpose(1, 2) for a in (q, k, v))).transpose(1, 2)
+    res = {f"model attention bfloat16 d128 S{seq} padded": attn_reading(out, plain)}
+    r, kk, vv = (torch.randn((2, seq, 4, 64), generator=gen, device="cuda") for _ in range(3))
+    wlog = -torch.exp(torch.randn((2, seq, 4, 64), generator=gen, device="cuda").clamp(-8, 4))
+    u = torch.randn((4, 64), generator=gen, device="cuda")
+    s0 = torch.randn((2, 4, 64, 64), generator=gen, device="cuda")
+    out, state = model_rwkv6.wkv_heads(r, kk, vv, wlog, u, s0)
+
+    def rows(a):  # (B, S, H, K) -> (B H, S, K)
+        return a.permute(0, 2, 1, 3).reshape(8, seq, 64)
+
+    plain = wkv.wkv_plain(rows(r), rows(kk), rows(vv), rows(wlog), u, s0.reshape(8, 64, 64))
+    res[f"model wkv K64 S{seq} padded"] = wkv_reading((rows(out), state.reshape(8, 64, 64)), plain)
     return res
 
 
@@ -633,6 +724,133 @@ def phase_main_wkv() -> dict:
     return res
 
 
+def scaled_ratio(a: torch.Tensor, b: torch.Tensor, rule: tuple[float, float]) -> float:
+    """max |a - b| / (atol rms(b) + rtol |b|): ``rule`` in units of the
+    scale of ``b`` (``WKV_SCALED_RULE``)."""
+    atol, rtol = rule
+    a, b = a.double(), b.double()
+    return float(((a - b).abs() / (atol * b.pow(2).mean().sqrt() + rtol * b.abs())).max())
+
+
+def wkv_f64(r, k, v, wlog, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The stepwise recurrence of ``wkv_plain`` in float64: the yardstick
+    that shows how near an f32 computation can come to ``WKV_RULE``."""
+    bh, seq, kd = r.shape
+    r, k, v, wlog, s = (a.double() for a in (r, k, v, wlog, s0))
+    rows = u.double().reshape(-1, kd)
+    u = rows[torch.arange(bh, device=r.device) % rows.shape[0]]
+    out = torch.empty((bh, seq, kd), dtype=torch.float64, device=r.device)
+    for t in range(seq):
+        kv = k[:, t, :, None] * v[:, t, None, :]
+        out[:, t] = torch.einsum("bk,bkv->bv", r[:, t], s + u[:, :, None] * kv)
+        s = torch.exp(wlog[:, t])[:, :, None] * s + kv
+    return out, s
+
+
+def captured_reading(kernel_name: str, args: tuple, kw: dict) -> dict:
+    """The kernel against its plain version on inputs the model fed it."""
+    if kernel_name == "flash_attention":
+        q, k, v = args
+        b, hq, seq, d = q.shape
+        tile = attention.select_blocks(b, hq, k.shape[1], seq, d, q.dtype)
+        out = attn_kernel.flash_attention_cuda(q, k, v, True, *tile)
+        plain = attention.mha_plain(q, k, v)
+        res = {"shape": [b, hq, k.shape[1], seq, d], "tile": tile, "max_abs_plain": float(plain.abs().max()),
+               **attn_reading(out, plain)}
+        # TOL[bf16] is an absolute limit for unit-scale values; here the
+        # outputs are tens, where one bf16 ulp is 0.0625 to 0.25
+        res["tol_holds"] = res.pop("tol") >= res["max_abs_err"]
+        return res
+    r, k, v, wlog, u = args
+    s0 = kw["s0"]
+    chunk = wkv.select_chunk(*r.shape)
+    got = wkv_kernel.wkv_cuda(r, k, v, wlog, u, chunk=chunk, s0=s0)
+    plain = wkv.wkv_plain(r, k, v, wlog, u, s0)
+    f64 = wkv_f64(r, k, v, wlog, u, s0)
+    res = {"shape": list(r.shape), "u": list(u.shape), "chunk": chunk, **wkv_reading(got, plain)}
+    res["wkv_rule_ratio"] = res.pop("max_ratio")  # reported; no f32 result meets it here
+    res["max_ratio"] = max(scaled_ratio(a, b, WKV_SCALED_RULE) for a, b in zip(got, plain))
+    res["rule"] = f"|a-b| <= {WKV_SCALED_RULE[0]} rms(b) + {WKV_SCALED_RULE[1]}|b|"
+    res["rms_out"] = float(plain[0].pow(2).mean().sqrt())
+    res["plain_vs_f64_ratio"] = max(rule_ratio(a, b, WKV_RULE) for a, b in zip(plain, f64))
+    res["kernel_vs_f64_ratio"] = max(rule_ratio(a, b, WKV_RULE) for a, b in zip(got, f64))
+    return res
+
+
+def phase_main_serve(path: str) -> dict:
+    """``launch.serve.serve`` at full width on the card: ``SERVE_SHAPE`` on
+    the config of ``path``.  The kernel's inputs at the first and the last
+    layer of the prefill are kept (references to the tensors the model
+    made, the WKV's initial state copied, since the cache's is updated in
+    place) and held against the plain version after the run; the prefill's
+    logits and the last decode step's are kept and must be finite."""
+    arch, kernel_name = SERVE[path]
+    module, attr = (model_layers, "flash_attention") if kernel_name == "flash_attention" else (model_rwkv6, "wkv")
+    original, head = getattr(module, attr), model_registry.LM._head
+    captured, logits = {}, []
+
+    def capture(*args, **kw):
+        inputs = (args, {k: v.clone() if k == "s0" else v for k, v in kw.items()})
+        captured.setdefault("first", inputs)
+        captured["last"] = inputs
+        return original(*args, **kw)
+
+    def keep_logits(self, h):
+        out = head(self, h)
+        logits.append(out)
+        del logits[1:-1]  # [the prefill's, the latest step's]
+        return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    setattr(module, attr, capture)
+    model_registry.LM._head = keep_logits
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        res = launch_serve.serve(arch, device="cuda", **SERVE_SHAPE)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        setattr(module, attr, original)
+        model_registry.LM._head = head
+    n_layers = res["n_layers"]
+    want = {name: n_layers if name == kernel_name else 0 for name in KERNELS}
+    by_phase = res.pop("launches")
+    if launches != want or by_phase["prefill"][kernel_name] != n_layers:
+        fail(f"{path}: the prefill must launch {kernel_name} once per layer ({n_layers}) and "
+             f"nothing else: {launches}, by phase {by_phase}")
+    if any(by_phase["decode"].values()):
+        fail(f"{path}: the decode launched a kernel: {by_phase['decode']}")
+    tokens = res.pop("tokens")
+    vocab = get_arch(arch).vocab
+    shape = (SERVE_SHAPE["requests"], SERVE_SHAPE["steps"])
+    if tokens.shape != shape or tokens.min() < 0 or tokens.max() >= vocab:
+        fail(f"{path}: tokens of shape {tokens.shape} in [{tokens.min()}, {tokens.max()}]")
+    finite = {"prefill": bool(torch.isfinite(logits[0]).all()), "last_step": bool(torch.isfinite(logits[-1]).all())}
+    prefill_logits = list(logits[0].shape)
+    del logits
+    readings = {which: captured_reading(kernel_name, *captured[which]) for which in ("first", "last")}
+    del captured
+    bound = res["params"] * 4 / HBM_BYTES_PER_S * 1e3  # f32 weights read once
+    out = {"phase": "main", "path": path, "seconds": main_s, "launches": launches,
+           "launches_by_phase": by_phase, **res,
+           "max_memory_allocated": res["peak_memory_bytes"],
+           "decode_bound_ms": bound, "decode_over_bound": res["decode_ms_per_step"] / bound,
+           "prefill_logits_shape": prefill_logits, "logits_finite": finite,
+           "first_tokens": tokens[:, :8].tolist(), "captured": readings}
+    emit(out)
+    if not all(finite.values()):
+        fail(f"{path}: logits are not finite: {finite}")
+    bad = {w: r for w, r in readings.items() if not r["max_ratio"] <= 1.0}
+    if bad:
+        fail(f"{path}: {kernel_name} disagrees with its plain version on the model's inputs: {bad}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -645,8 +863,16 @@ def main() -> int:
     main_results = phase_main_paper()
     phase_probe(probe_libs)
     main_results += [phase_main_attention(), phase_main_wkv()]
+    served = {path: phase_main_serve(path) for path in SERVE}
+    for r in main_results:  # launches over every main path that runs the kernel
+        r["launches_by_path"] = {OWN_PATH[r["name"]]: r["launches"]}
+        for path, res in served.items():
+            if res["launches"][r["name"]]:
+                r["launches_by_path"][path] = res["launches"][r["name"]]
+        r["launches"] = sum(r["launches_by_path"].values())
     kernels = [{"name": r["name"], "route": "cuda", "source": KERNELS[r["name"]][1],
                 "replaces": KERNELS[r["name"]][2], "launches": r["launches"],
+                "launches_by_path": r["launches_by_path"],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r.get("library_ms")}

@@ -1,0 +1,17 @@
+"""olmo-1b [dense]: 16L d2048 16H (GQA kv=16) ff8192 vocab50304 — non-parametric LN
+[arXiv:2402.00838]."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="olmo-1b",
+    family="dense",
+    n_layers=16,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=16,
+    d_ff=8192,
+    vocab=50304,
+    norm="nonparametric_ln",
+    mlp="swiglu",
+    notes="OLMo: non-parametric LayerNorm (no scale/bias), SwiGLU, no biases.",
+)

@@ -1,17 +1,21 @@
 """Turn the JAX package's state, given as numpy arrays, into the port's tensors.
 
 Both packages then compute on the same inputs: the stencil's ``src`` and
-star weights, the LB step's ``(f, phase, vel)``, attention's ``(q, k, v)``
-and the WKV's ``(r, k, v, wlog, u)``.  Layouts are the same in both packages
-((nz, ny, nx), SoA pdfs, (B, H, S, D), (BH, S, K)), so conversion only
-changes the container and the device.
+star weights, the LB step's ``(f, phase, vel)``, attention's ``(q, k, v)``,
+the WKV's ``(r, k, v, wlog, u)`` and a model's parameter tree.  Layouts are
+the same in both packages ((nz, ny, nx), SoA pdfs, (B, H, S, D), (BH, S, K),
+the blueprint's leaves), so conversion only changes the container and the
+device, and for a model unstacks the per-layer leaves.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .configs.base import ArchConfig
 from .device import resolve_device
+from .models.params import tree_map
+from .models.registry import unstack
 
 
 def to_tensor(a, device: str | torch.device | None = None) -> torch.Tensor:
@@ -46,3 +50,12 @@ def attention_state(q, k, v, device: str | torch.device | None = None):
 def wkv_state(r, k, v, wlog, u, device: str | torch.device | None = None):
     """``(r, k, v, wlog, u)`` of the WKV as tensors on ``device``."""
     return tuple(to_tensor(a, device) for a in (r, k, v, wlog, u))
+
+
+def lm_params(cfg: ArchConfig, tree, device: str | torch.device | None = None) -> dict:
+    """The JAX package's parameter tree of ``cfg`` (nested dicts of numpy
+    arrays, as ``jax.tree.map(np.asarray, params)`` gives them) as the
+    port's ``LM`` state: flat names, the stacked ``(L, ...)`` block leaves
+    unstacked into ``blocks.<l>.<name>``.  ``LM(cfg, lm_params(cfg, tree))``
+    is then the JAX model with these parameters."""
+    return unstack(cfg, tree_map(lambda a: to_tensor(a, device), tree))

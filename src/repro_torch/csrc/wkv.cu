@@ -44,6 +44,9 @@
 //      rows of out on each;
 //   4. S = exp(Lambda_{L-1}) S + k'^T v, in the same registers.
 // Three barriers per chunk.  The final state is written from the registers.
+// The bonus u is one row of K for every block, or one per head (row
+// blockIdx.x % H, the models' layout bh = b H + h); an initial state s0, where
+// given, seeds each owner's registers (a prefill continuing a cached state).
 // What limits it (the port's PERF.md): shared-memory wavefronts first, so
 // steps 2 and 3 keep operands in registers where a row would be read again;
 // then issuing step 2's L^2 K / 2 exps (accurate expf).
@@ -153,8 +156,8 @@ template <int L, int K>
 __global__ void __launch_bounds__(kThreads)
     wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ wlog,
-               const float* __restrict__ u, float* __restrict__ out,
-               float* __restrict__ state_out, int seq) {
+               const float* __restrict__ u, int u_rows, const float* __restrict__ s0,
+               float* __restrict__ out, float* __restrict__ state_out, int seq) {
   using C = Chunk<L, K>;
   constexpr int P = C::kRow;
   constexpr int W = C::kScan;
@@ -171,7 +174,8 @@ __global__ void __launch_bounds__(kThreads)
   const int col0 = blockIdx.y * kVC;
   const int64_t base = static_cast<int64_t>(blockIdx.x) * seq * K;
   for (int i = tid; i < C::kA; i += kThreads) a[i] = 0.f;
-  for (int i = tid; i < K; i += kThreads) us[i] = u[i];
+  const float* ub = u + (blockIdx.x % u_rows) * K;  // row bh % H of u (H, K), or u (K,)
+  for (int i = tid; i < K; i += kThreads) us[i] = ub[i];
   if (tid == 0) {
     int i = 0;
     for (int tg = 0; tg < C::kTileRows; ++tg)
@@ -182,6 +186,11 @@ __global__ void __launch_bounds__(kThreads)
   const int g = tid % G;  // lane in its group of G
   const int jq = g * 4, e = tid / G % kVC;
   float sreg[4] = {0.f, 0.f, 0.f, 0.f};
+  if (s0 != nullptr && owner) {
+    const float* sb = s0 + static_cast<int64_t>(blockIdx.x) * K * K;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) sreg[q] = sb[(jq + q) * K + col0 + e];
+  }
 
   const int n_chunks = seq / L;
   prefetch<L, K>(smem, r, k, wlog, v, base, col0, tid);
@@ -322,6 +331,8 @@ __global__ void __launch_bounds__(kThreads)
 
 struct Args {
   const float *r, *k, *v, *wlog, *u;
+  int u_rows;
+  const float* s0;
   float *out, *state;
   int bh, seq;
   cudaStream_t stream;
@@ -338,8 +349,8 @@ int launch_chunk(const Args& a) {
     return static_cast<int>(err);
   }
   const dim3 grid(a.bh, K / kVC);
-  kernel<<<grid, kThreads, C::kBytes, a.stream>>>(a.r, a.k, a.v, a.wlog, a.u, a.out, a.state,
-                                                   a.seq);
+  kernel<<<grid, kThreads, C::kBytes, a.stream>>>(a.r, a.k, a.v, a.wlog, a.u, a.u_rows, a.s0,
+                                                   a.out, a.state, a.seq);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -367,14 +378,19 @@ int attrs_chunk(cudaFuncAttributes* out) {
 
 extern "C" {
 
-// r, k, v, wlog, out: (bh, seq, K) f32; u: (K,); state: (bh, K, K), the
-// final state.  Returns cudaGetLastError() after the launch (0 on success);
-// argument errors return cudaErrorInvalidValue.
+// r, k, v, wlog, out: (bh, seq, K) f32; u: (u_rows, K), row bh % u_rows
+// for row bh of the others (u_rows = 1: one u for all; u_rows = H with
+// bh = b H + h: one per head); s0: (bh, K, K), the initial state, or null
+// for zeros; state: (bh, K, K), the final state.  Returns cudaGetLastError()
+// after the launch (0 on success); argument errors return
+// cudaErrorInvalidValue.
 int wkv_launch(int chunk, int K, const float* r, const float* k, const float* v,
-               const float* wlog, const float* u, float* out, float* state, int bh, int seq,
-               void* stream) {
-  if (bh < 1 || chunk < 1 || seq % chunk) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{r, k, v, wlog, u, out, state, bh, seq, static_cast<cudaStream_t>(stream)};
+               const float* wlog, const float* u, int u_rows, const float* s0, float* out,
+               float* state, int bh, int seq, void* stream) {
+  if (bh < 1 || chunk < 1 || seq % chunk || u_rows < 1 || bh % u_rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{r, k, v, wlog, u, u_rows, s0, out, state, bh, seq,
+               static_cast<cudaStream_t>(stream)};
   WKV_CHUNKS(launch_chunk, chunk, K, a)
 }
 

@@ -57,10 +57,16 @@ def flash_attention(
     block_kv: int | None = None,
 ) -> torch.Tensor:
     """GQA attention of ``q`` (B, Hq, S, D) over ``k``, ``v`` (B, Hkv, S, D);
-    picks the tile with :func:`select_blocks` where one is not given."""
+    picks the tile with :func:`select_blocks` where one is not given.  A CPU
+    tensor runs the plain version, which does not tile: there the first
+    listed tile that divides S is taken, at any head dim."""
     if block_q is None or block_kv is None:
         b, hq, s, d = q.shape
-        bq, bkv = select_blocks(b, hq, k.shape[1], s, d, q.dtype, causal)
+        if q.device.type == "cpu":
+            fits = [t for t in MEASURED_ORDER if not (s % t[0] or s % t[1])]
+            bq, bkv = fits[0] if fits else select_blocks(b, hq, k.shape[1], s, d, q.dtype, causal)
+        else:
+            bq, bkv = select_blocks(b, hq, k.shape[1], s, d, q.dtype, causal)
         block_q = block_q or bq
         block_kv = block_kv or bkv
     return flash_attention_cuda(q, k, v, causal=causal, block_q=block_q, block_kv=block_kv)

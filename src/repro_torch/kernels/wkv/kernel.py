@@ -3,7 +3,9 @@
 Replaces the Pallas TPU kernel ``repro.kernels.wkv.kernel.wkv_pallas``: one
 thread block per (batch*head, 16 columns of v), a loop over chunks of L
 steps inside it, and the block's (K, 16) slice of the f32 state in
-registers across the loop.  A tensor on the CPU goes to the plain version
+registers across the loop.  The bonus ``u`` is one row for all
+(batch*head) rows or one per head, and an initial state ``s0`` may seed the
+registers (the models' prefill).  A tensor on the CPU goes to the plain version
 (:func:`~repro_torch.kernels.wkv.ref.wkv_plain`); a CUDA tensor launches the
 kernel or raises.
 """
@@ -25,40 +27,58 @@ HEAD_DIMS = (16, 32, 64)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("wkv").cdll
     lib.wkv_launch.restype = ctypes.c_int
-    lib.wkv_launch.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.wkv_launch.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    )
     lib.wkv_attributes.restype = ctypes.c_int
     lib.wkv_attributes.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
     return lib
 
 
-def wkv_cuda(r, k, v, wlog, u, chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
-    """Chunked WKV of r, k, v, wlog (BH, S, K) and u (K,) from a zero state.
-    Returns ``(out, s)``: out (BH, S, K) and the final state (BH, K, K)."""
-    if r.dim() != 3 or any(t.shape != r.shape for t in (k, v, wlog)) or u.shape != r.shape[2:]:
-        raise ValueError(f"r, k, v, wlog must be one (BH, S, K) shape and u (K,), got "
-                         f"{[tuple(t.shape) for t in (r, k, v, wlog, u)]}")
+def _check(r, k, v, wlog, u, s0) -> None:
+    if r.dim() != 3 or any(t.shape != r.shape for t in (k, v, wlog)):
+        raise ValueError(f"r, k, v, wlog must be one (BH, S, K) shape, got "
+                         f"{[tuple(t.shape) for t in (r, k, v, wlog)]}")
+    bh, _, kd = r.shape
+    if not (u.shape == (kd,) or (u.dim() == 2 and u.shape[1] == kd and bh % u.shape[0] == 0)):
+        raise ValueError(f"u must be (K,) or (H, K) with H dividing BH = {bh}, K = {kd}; "
+                         f"got {tuple(u.shape)}")
+    if s0 is not None and s0.shape != (bh, kd, kd):
+        raise ValueError(f"s0 must be (BH, K, K) = {(bh, kd, kd)}, got {tuple(s0.shape)}")
+    if any(t.device != r.device for t in (k, v, wlog, u) + (() if s0 is None else (s0,))):
+        raise ValueError("r, k, v, wlog, u and s0 must share one device")
+
+
+def wkv_cuda(r, k, v, wlog, u, chunk: int = 64, s0=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked WKV of r, k, v, wlog (BH, S, K), with the bonus u (K,) or
+    per head (H, K) (row ``bh % H`` for row ``bh = b H + h``), from the
+    state s0 (BH, K, K), or zeros where it is None.  Returns ``(out, s)``:
+    out (BH, S, K) and the final state (BH, K, K)."""
+    _check(r, k, v, wlog, u, s0)
     bh, seq, kd = r.shape
     if seq % chunk:
         raise ValueError(f"seq {seq} not divisible by chunk {chunk}")
-    if any(t.device != r.device for t in (k, v, wlog, u)):
-        raise ValueError("r, k, v, wlog and u must share one device")
     if r.device.type == "cpu":
-        return wkv_plain(r, k, v, wlog, u)
+        return wkv_plain(r, k, v, wlog, u, s0)
     if r.device.type != "cuda":
         raise ValueError(f"wkv_cuda takes CPU or CUDA tensors, got {r.device}")
-    if any(t.dtype != torch.float32 for t in (r, k, v, wlog, u)):
-        raise TypeError("wkv_cuda takes f32 r, k, v, wlog and u")
+    given = (r, k, v, wlog, u) + (() if s0 is None else (s0,))
+    if any(t.dtype != torch.float32 for t in given):
+        raise TypeError("wkv_cuda takes f32 r, k, v, wlog, u and s0")
     if kd not in HEAD_DIMS or chunk not in CHUNKS:
         raise ValueError(f"(chunk {chunk}, K {kd}) is not compiled; chunks {CHUNKS}, K {HEAD_DIMS}")
-    if not all(t.is_contiguous() for t in (r, k, v, wlog, u)):
-        raise ValueError("r, k, v, wlog and u must be contiguous")
+    if not all(t.is_contiguous() for t in given):
+        raise ValueError("r, k, v, wlog, u and s0 must be contiguous")
     out = torch.empty_like(r)
     state = torch.empty((bh, kd, kd), dtype=torch.float32, device=r.device)
+    u_rows = 1 if u.dim() == 1 else u.shape[0]
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = _lib().wkv_launch(
             chunk, kd, r.data_ptr(), k.data_ptr(), v.data_ptr(), wlog.data_ptr(), u.data_ptr(),
-            out.data_ptr(), state.data_ptr(), bh, seq, stream,
+            u_rows, None if s0 is None else s0.data_ptr(), out.data_ptr(), state.data_ptr(),
+            bh, seq, stream,
         )
     if err:
         raise RuntimeError(f"wkv launch failed: CUDA error {err} (chunk {chunk}, K {kd})")

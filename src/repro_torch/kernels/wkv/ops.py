@@ -39,13 +39,14 @@ def select_chunk(BH: int, S: int, K: int) -> int:
     return space[0]
 
 
-def wkv(r, k, v, wlog, u, chunk: int | None = None):
-    """Chunked WKV of r, k, v, wlog (BH, S, K) and u (K,) from a zero state;
-    picks the chunk with :func:`select_chunk` where none is given.  Returns
-    ``(out, s)`` as ``wkv_ref`` does (the JAX ``wkv`` returns out alone)."""
+def wkv(r, k, v, wlog, u, chunk: int | None = None, s0=None):
+    """Chunked WKV of r, k, v, wlog (BH, S, K) and u (K,) or (H, K), from the
+    state s0 (BH, K, K) or zeros; picks the chunk with :func:`select_chunk`
+    where none is given.  Returns ``(out, s)`` as ``wkv_ref`` does (the JAX
+    ``wkv`` returns out alone)."""
     if chunk is None:
         chunk = select_chunk(*r.shape)
-    return wkv_cuda(r, k, v, wlog, u, chunk=chunk)
+    return wkv_cuda(r, k, v, wlog, u, chunk=chunk, s0=s0)
 
 
 __all__ = ["config_space", "select_chunk", "wkv", "wkv_plain"]

@@ -1,0 +1,229 @@
+"""Shared neural-net layers: norms, RoPE, GQA attention, MLPs.
+
+Counterpart of ``repro.models.layers``, as plain functions on tensors, with
+the same arithmetic: statistics in f32, weights stored in the parameter
+dtype and cast to the activations' dtype where they are used.  A parameter
+group ``p`` is any mapping of names to tensors (an ``nn.ParameterDict`` in
+the model).
+
+Attention goes through the port's flash-attention kernel wherever it
+computes square causal attention from position 0: ``attention`` (the
+forward, no cache) and ``attention_block`` on an empty cache with more than
+one new token (the prefill).  The JAX prefill attends over the whole
+``max_len`` cache with keys past ``len + S`` masked by -1e30, which gives
+them probability 0, so the kernel over the S new keys computes the same
+function.  A decode step (S = 1) or a call on a cache that already holds
+keys takes the plain cached attention, as the JAX package's XLA path does:
+no kernel computes those.  The choice follows the shapes and the cache
+length, which is a Python int, so it never waits for the card.
+
+``moe_block`` waits for ROADMAP Queue 1 item 6.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from ..kernels.attention import flash_attention
+from .params import ParamDef
+
+Params = Mapping[str, torch.Tensor]
+
+# S is zero-padded to a multiple of this, the smallest compiled tile side,
+# before the flash kernel (csrc/flash_attention.cu needs whole tiles)
+ATTN_PAD = 32
+NEG_INF = -1e30
+
+# --------------------------------------------------------------------------- #
+# Norms
+# --------------------------------------------------------------------------- #
+
+
+def rmsnorm(x, weight=None, eps: float = 1e-6):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight.float()
+    return y.to(x.dtype)
+
+
+def layernorm(x, weight=None, bias=None, eps: float = 1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def norm_defs(cfg: ArchConfig) -> dict:
+    if cfg.norm == "nonparametric_ln":  # olmo: LN without scale/bias
+        return {}
+    if cfg.norm == "layernorm":
+        return {
+            "scale": ParamDef((cfg.d_model,), (None,), "ones"),
+            "bias": ParamDef((cfg.d_model,), (None,), "zeros"),
+        }
+    return {"scale": ParamDef((cfg.d_model,), (None,), "ones")}
+
+
+def apply_norm(cfg: ArchConfig, p: Params, x):
+    if cfg.norm == "nonparametric_ln":
+        return layernorm(x)
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["scale"], p["bias"])
+    return rmsnorm(x, p["scale"])
+
+
+# --------------------------------------------------------------------------- #
+# RoPE
+# --------------------------------------------------------------------------- #
+
+
+@functools.cache
+def rope_freqs(half: int, theta: float, device: torch.device) -> torch.Tensor:
+    """``1 / theta^(i / half)``, i < half, computed in numpy f32 exactly as
+    the JAX package computes them, and copied to ``device`` once: a copy
+    from host memory in every call would make the host wait for the card
+    twice a layer."""
+    freqs = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
+    return torch.from_numpy(freqs).to(device)
+
+
+def rope(x, positions, theta: float = 10000.0):
+    """x: (..., S, H, hd); positions: (..., S), or (..., 1) to give every
+    token one position."""
+    half = x.shape[-1] // 2
+    angles = positions[..., :, None].float() * rope_freqs(half, theta, x.device)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# GQA attention
+# --------------------------------------------------------------------------- #
+
+
+def attention_defs(cfg: ArchConfig) -> dict:
+    d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    defs = {
+        "wq": ParamDef((d, H * hd), ("fsdp", "tp")),
+        "wk": ParamDef((d, Hkv * hd), ("fsdp", "tp")),
+        "wv": ParamDef((d, Hkv * hd), ("fsdp", "tp")),
+        "wo": ParamDef((H * hd, d), ("tp", "fsdp")),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((H * hd,), ("tp",), "zeros")
+        defs["bk"] = ParamDef((Hkv * hd,), ("tp",), "zeros")
+        defs["bv"] = ParamDef((Hkv * hd,), ("tp",), "zeros")
+    return defs
+
+
+def attention(q, k, v):
+    """Causal GQA self-attention from position 0 through the flash kernel:
+    q (B, S, H, hd), k, v (B, S, Hkv, hd) -> (B, S, H, hd).
+
+    S is zero-padded to a multiple of ``ATTN_PAD`` for the kernel's tiles and
+    the output sliced back.  That is exact under the causal mask: a real
+    query sees only the keys at or before it, all real."""
+    B, S, H, hd = q.shape
+    pad = -S % ATTN_PAD
+    qt, kt, vt = (F.pad(a.transpose(1, 2), (0, 0, 0, pad)).contiguous() for a in (q, k, v))
+    out = flash_attention(qt, kt, vt, causal=True)
+    return out[:, :, :S].transpose(1, 2)
+
+
+def attention_block(
+    cfg: ArchConfig,
+    p: Params,
+    x,  # (B, S, d)
+    positions,  # (B, S), or (B, 1) for one position shared by the S tokens
+    kv_cache: Optional[dict] = None,  # {"k": (B, T, Hkv, hd), "v": ..., "len": int}
+):
+    """Full attention sub-block: qkv -> rope -> attention -> out-proj.
+
+    Returns (out, new_kv_cache).  The cache's k and v are written in place
+    (the JAX package returns new arrays); ``len`` is a Python int."""
+    B, S, d = x.shape
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    cdt = x.dtype
+    q = (x @ p["wq"].to(cdt)).reshape(B, S, H, hd)
+    k = (x @ p["wk"].to(cdt)).reshape(B, S, Hkv, hd)
+    v = (x @ p["wv"].to(cdt)).reshape(B, S, Hkv, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cdt).reshape(H, hd)
+        k = k + p["bk"].to(cdt).reshape(Hkv, hd)
+        v = v + p["bv"].to(cdt).reshape(Hkv, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    new_cache = None
+    if kv_cache is None:
+        out = attention(q, k, v)
+    else:
+        idx = kv_cache["len"]
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        ck[:, idx:idx + S] = k
+        cv[:, idx:idx + S] = v
+        new_cache = {"k": ck, "v": cv, "len": idx + S}
+        if idx == 0 and S > 1:  # the prefill: square causal attention over the new keys
+            out = attention(q, k, v)
+        else:
+            out = _cached_attention(q, ck, cv, idx)
+    y = out.reshape(B, S, H * hd) @ p["wo"].to(cdt)
+    return y, new_cache
+
+
+def _cached_attention(q, ck, cv, cache_len: int):
+    """Decode/cached attention: q positions start at cache_len; keys beyond
+    cache_len + S are masked."""
+    B, S, H, hd = q.shape
+    T, Hkv = ck.shape[1], ck.shape[2]
+    G = H // Hkv
+    scale = 1.0 / np.sqrt(hd)
+    qg = q.reshape(B, S, Hkv, G, hd)
+    scores = torch.einsum("bchgd,bthd->bhgct", qg.float(), ck.float()) * scale
+    qpos = cache_len + torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(T, device=q.device)[None, :]
+    scores = torch.where(qpos >= kpos, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", probs.to(cv.dtype), cv)
+    return out.reshape(B, S, H, hd)
+
+
+# --------------------------------------------------------------------------- #
+# MLPs
+# --------------------------------------------------------------------------- #
+
+
+def mlp_defs(cfg: ArchConfig, d_ff: int | None = None) -> dict:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.mlp == "swiglu":
+        return {
+            "w_gate": ParamDef((d, ff), ("fsdp", "tp")),
+            "w_up": ParamDef((d, ff), ("fsdp", "tp")),
+            "w_down": ParamDef((ff, d), ("tp", "fsdp")),
+        }
+    return {
+        "w_in": ParamDef((d, ff), ("fsdp", "tp")),
+        "w_down": ParamDef((ff, d), ("tp", "fsdp")),
+    }
+
+
+def mlp(cfg: ArchConfig, p: Params, x):
+    cdt = x.dtype
+    if cfg.mlp == "swiglu":
+        h = F.silu(x @ p["w_gate"].to(cdt)) * (x @ p["w_up"].to(cdt))
+        return h @ p["w_down"].to(cdt)
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu(x @ p["w_in"].to(cdt), approximate="tanh") @ p["w_down"].to(cdt)

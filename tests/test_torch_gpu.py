@@ -24,6 +24,8 @@ from repro_torch.kernels.stencil25.kernel import blocks_per_sm
 from repro_torch.kernels.wkv import wkv, wkv_cuda, wkv_plain
 from repro_torch.kernels.wkv.kernel import CHUNKS
 from repro_torch.kernels.wkv.kernel import HEAD_DIMS as WKV_HEAD_DIMS
+from repro_torch.models.layers import attention as model_attention
+from repro_torch.models.rwkv6 import wkv_heads
 
 pytestmark = pytest.mark.gpu
 
@@ -191,3 +193,45 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     r8, k8, v8, w8, u8 = _wkv_inputs(torch.Generator(device=cuda).manual_seed(6), 2, 128, 8, cuda)
     with pytest.raises(ValueError):
         wkv_cuda(r8, k8, v8, w8, u8, chunk=16)  # K not compiled
+
+
+@pytest.mark.parametrize("kd", WKV_HEAD_DIMS)
+def test_wkv_kernel_with_per_head_bonus_and_state_matches_plain(cuda, kd):
+    """The models' form: u (H, K), row bh % H, and an initial state s0, on
+    every compiled chunk."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    r, k, v, wlog, _ = _wkv_inputs(gen, 6, 256, kd, cuda)
+    u = torch.randn((3, kd), generator=gen, device=cuda)
+    s0 = torch.randn((6, kd, kd), generator=gen, device=cuda)
+    plain_out, plain_state = wkv_plain(r, k, v, wlog, u, s0)
+    for chunk in CHUNKS:
+        out, state = wkv_cuda(r, k, v, wlog, u, chunk=chunk, s0=s0)
+        assert _close(out, plain_out, 5e-4, 5e-4) and _close(state, plain_state, 5e-4, 5e-4), chunk
+
+
+def test_model_prefill_kernels_match_plain_when_padded(cuda):
+    """S = 100: the model's attention pads to 128 for the flash kernel and its
+    WKV to 112 for the chunked one; each against the plain version on the
+    unpadded inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    q = torch.randn((2, 100, 10, 128), generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((2, 100, 2, 128), generator=gen, device=cuda).to(torch.bfloat16) for _ in range(2))
+    n = flash_attention_cuda.launches
+    out = model_attention(q, k, v)
+    assert flash_attention_cuda.launches == n + 1
+    plain = mha_plain(*(a.transpose(1, 2) for a in (q, k, v))).transpose(1, 2)
+    assert _err(out, plain) <= TOL[torch.bfloat16] and _close(out, plain, 2e-3, 1e-2)
+    r, kk, vv = (torch.randn((2, 100, 4, 64), generator=gen, device=cuda) for _ in range(3))
+    wlog = -torch.exp(torch.randn((2, 100, 4, 64), generator=gen, device=cuda).clamp(-8, 4))
+    u = torch.randn((4, 64), generator=gen, device=cuda)
+    s0 = torch.randn((2, 4, 64, 64), generator=gen, device=cuda)
+    n = wkv_cuda.launches
+    out, state = wkv_heads(r, kk, vv, wlog, u, s0)
+    assert wkv_cuda.launches == n + 1
+
+    def rows(a):
+        return a.permute(0, 2, 1, 3).reshape(8, 100, 64)
+
+    plain_out, plain_state = wkv_plain(rows(r), rows(kk), rows(vv), rows(wlog), u, s0.reshape(8, 64, 64))
+    assert _close(rows(out), plain_out, 5e-4, 5e-4)
+    assert _close(state.reshape(8, 64, 64), plain_state, 5e-4, 5e-4)

@@ -55,7 +55,12 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "repro_torch.core.estimator", "repro_torch.frontend.lower",
                  "repro_torch.kernels.attention.kernel", "repro_torch.kernels.attention.ops",
                  "repro_torch.kernels.attention.ref", "repro_torch.kernels.wkv.kernel",
-                 "repro_torch.kernels.wkv.ops", "repro_torch.kernels.wkv.ref"):
+                 "repro_torch.kernels.wkv.ops", "repro_torch.kernels.wkv.ref",
+                 "repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.qwen2_5_14b",
+                 "repro_torch.configs.rwkv6_1_6b", "repro_torch.models.params",
+                 "repro_torch.models.layers", "repro_torch.models.rwkv6",
+                 "repro_torch.models.registry", "repro_torch.serve.engine",
+                 "repro_torch.launch.serve"):
         assert name in res["modules"]
 
 
