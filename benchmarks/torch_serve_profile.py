@@ -5,7 +5,7 @@ prefill and of the decode steps.
     python3 benchmarks/torch_serve_profile.py
 
 Needs an NVIDIA card and the CUDA toolkit (the port's kernels build on first
-use).  For each of Qwen2.5-14B and RWKV6-1.6B at full width (the shapes of
+use).  For each of Qwen2.5-14B, RWKV6-1.6B and StableLM-12B at full width (the shapes of
 ``chip_smoke.py``'s serve paths: 4 requests of 512 prompt tokens, greedy),
 it builds the model with ``repro_torch.models.build_model``, warms up with
 one prefill and two decode steps, then:
@@ -15,7 +15,8 @@ one prefill and two decode steps, then:
   phase, and reads from each trace the device's busy time (the union of its
   kernel, copy and fill intervals), the span from the first device interval
   to the last, the idle share of that span, the kernels by total time, and
-  the host-to-device copies and synchronising runtime calls the host made.
+  the host-to-device copies and synchronising runtime calls the host made,
+  and the port's own kernels (flash attention, WKV) by launches and time.
 
 The profiler adds host time to every operator, so the traced spans are
 longer than the untraced times; the device intervals themselves are the
@@ -43,10 +44,11 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
-ARCHS = ("qwen2.5-14b", "rwkv6-1.6b")
+ARCHS = ("qwen2.5-14b", "rwkv6-1.6b", "stablelm-12b")
 REQUESTS, PROMPT_LEN, STEPS = 4, 512, 8
 TRACE = ROOT / "build" / "serve_profile_trace.json"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+PORT_KERNELS = ("flash_tc_kernel", "flash_f32_kernel", "wkv_kernel")  # in the trace's kernel names
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
               "cudaMemcpy", "cudaMemcpyAsync")
 
@@ -85,6 +87,8 @@ def read_trace(path: Path) -> dict:
         by_name[e["name"]][0] += 1
         by_name[e["name"]][1] += float(e["dur"])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    port = {n[:120]: {"count": c, "ms": t / 1e3, "ms_per_launch": t / 1e3 / c}
+            for n, (c, t) in by_name.items() if any(k in n for k in PORT_KERNELS)}
     runtime = defaultdict(int)
     for e in events:
         if e.get("cat") == "cuda_runtime" and e.get("name") in SYNC_CALLS:
@@ -96,6 +100,7 @@ def read_trace(path: Path) -> dict:
         "memcpy_htod": sum(1 for e in device if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]),
         "sync_calls": dict(runtime),
         "top": [{"name": n[:120], "count": c, "ms": t / 1e3} for n, (c, t) in top],
+        "port_kernels": port,
     }
 
 

@@ -5,9 +5,11 @@
 
 Drives the port's main paths.  The paper's loop: the §III estimator picks
 the launch configuration from the address expressions alone, then the
-chosen hand-written CUDA kernel runs.  Beside it, GQA flash attention at
+chosen hand-written CUDA kernel runs; and every configuration it ranks,
+timed, to check its ranking.  Beside it, GQA flash attention at
 Qwen2.5-14B's width and the chunked RWKV6 WKV at RWKV6-1.6B's width, each
-with the tile or chunk fixed by measurement.  Phases, one JSON line each:
+with the tile or chunk fixed by measurement, and three models served at
+full width.  Phases, one JSON line each:
 
 1. device  — the card, its count, and ``nvidia-smi``'s name and power limit;
 2. build   — the four kernels built from ``src/repro_torch/csrc`` (one
@@ -22,7 +24,8 @@ with the tile or chunk fixed by measurement.  Phases, one JSON line each:
    all 162 stencil configurations in f64 and a few in f32/bf16 on both
    stencil kernels (staged and direct), all 49 LBM configurations in f64
    and a few in f32; the stencil's yardstick ``conv3d`` on the interior;
-   every compiled flash (tile, head dim, dtype) at four head groupings,
+   every compiled flash (tile, head dim, dtype), head dims 16, 32, 64, 112,
+   128 and 160, at four head groupings,
    causal and not, at S = 256, and every bf16 tile at S = 2048, D = 128,
    (Hq, Hkv) = (10, 2), causal, where rows from 1024 on exist; every
    compiled WKV (chunk, K), output and final state, at S = 128 and at
@@ -47,15 +50,24 @@ with the tile or chunk fixed by measurement.  Phases, one JSON line each:
    their redesign, ``pr12_ms``).  The stencil's staged and direct kernels
    are timed in turns (direct, staged, staged, direct), beside the staged
    block's shared memory, the card's blocks per SM for it and the
-   estimator's wave;
+   estimator's wave.  The paper line also carries ``select_block``'s host
+   seconds for both kernels, cold (its ranking's cache cleared) and cached;
 5. probe   — ``benchmarks/torch_stencil_probe.py`` at the stencil's main
    shape: direct, copy-only, unclamped direct and staged kernels in turns;
-6. serve   — ``repro_torch.launch.serve.serve`` on the card at full width:
-   Qwen2.5-14B (all 48 layers, f32 parameters, bf16 compute) and then
-   RWKV6-1.6B (all 24 layers), each answering 4 requests of 512 prompt
+6. rank    — ``benchmarks/torch_rank_check.py``: at the paper grids in
+   f64, all 162 stencil configurations on both stencil kernels and all 49
+   LBM ones, each held against the plain version (1e-10) and then timed
+   in two passes; Kendall tau and Spearman rho between predicted and
+   measured GLup/s, the passes' own tau, the predicted winner's measured
+   rank, its time over the fastest one's and the top-5 overlap per kernel
+   (every configuration's figures in ``results/rank_check.json``);
+7. serve   — ``repro_torch.launch.serve.serve`` on the card at full width:
+   Qwen2.5-14B (all 48 layers, f32 parameters, bf16 compute), then
+   RWKV6-1.6B (all 24 layers) and StableLM-12B (all 40 layers, head dim
+   160), each answering 4 requests of 512 prompt
    tokens with 16 new tokens, greedy, parameters drawn on the card from a
-   seeded generator.  The prefill must launch ``flash_attention`` (Qwen) or
-   ``wkv`` (RWKV) once per layer and the decode neither.  The inputs the
+   seeded generator.  The prefill must launch ``flash_attention`` (Qwen,
+   StableLM) or ``wkv`` (RWKV) once per layer and the decode neither.  The inputs the
    model fed the kernel at the first and the last layer are held, kernel
    against plain version: attention by ``ATTN_RULE``; WKV by
    ``WKV_SCALED_RULE`` (see there), with ``WKV_RULE``'s reading and the f32
@@ -105,6 +117,7 @@ from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
 from repro_torch.models import rwkv6 as model_rwkv6  # noqa: E402
+import torch_rank_check as rank_check  # noqa: E402
 import torch_stencil_probe as stencil_probe  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -146,6 +159,7 @@ MODEL_CHECK_SEQ = 100  # the model's kernel calls padded: to 128 (attention), 11
 SERVE = {  # main path: (config, the kernel its prefill must launch once per layer)
     "serve_qwen": ("qwen2.5-14b", "flash_attention"),
     "serve_rwkv": ("rwkv6-1.6b", "wkv"),
+    "serve_stablelm": ("stablelm-12b", "flash_attention"),
 }
 SERVE_SHAPE = {"requests": 4, "prompt_len": 512, "steps": 16}
 OWN_PATH = {"stencil25": "paper", "lbm_d3q15": "paper", "flash_attention": "attention", "wkv": "wkv"}
@@ -291,7 +305,10 @@ def phase_build() -> dict:
     hmma = {n: hmma_counts(lib.path) for n, lib in libs.items()}  # by kernel instantiation
     stencil_f64_spills = {n: a["local_bytes"] for n, a in regs.items()
                           if n.startswith("stencil25") and "float64" in n and a["local_bytes"]}
+    flash_spills = {n: a["local_bytes"] for n, a in regs.items()
+                    if n.startswith("flash_attention") and a["local_bytes"]}
     emit({"phase": "build", "wall_s": wall, "stencil25_f64_spills": stencil_f64_spills,
+          "flash_attention_spills": flash_spills,
           "nvcc_s": {n: lib.build_seconds for n, lib in libs.items()},
           "ir_regs_per_thread": {"stencil25": appspec.star3d_ir((32, 4, 8)).regs_per_thread,
                                  "lbm_d3q15": appspec.lbm_d3q15_ir((32, 4, 4)).regs_per_thread},
@@ -547,6 +564,7 @@ def phase_main_paper() -> list[dict]:
     launches = read_counts()
     if not (launches["stencil25"] and launches["lbm_d3q15"]):
         fail(f"a kernel of the main path never launched: {launches}")
+    select_s = select_block_seconds()
 
     out = []
     # --- stencil ------------------------------------------------------------
@@ -614,11 +632,40 @@ def phase_main_paper() -> list[dict]:
                 "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms,
                 "copy_ms": copy_ms, "copy_bytes": f0.numel() * 8, "steps": LBM_STEPS,
                 "max_abs_err": lerr, "launches": launches["lbm_d3q15"]})
-    emit({"phase": "main", "path": "paper", "seconds": main_s, "launches": launches, "results": out})
+    emit({"phase": "main", "path": "paper", "seconds": main_s, "launches": launches,
+          "select_block_s": select_s, "results": out})
     bad = [r["name"] for r in out if not r["max_abs_err"] <= TOL[torch.float64]]
     if bad:
         fail(f"main-path outputs disagree with the plain versions: {bad}")
     return out
+
+
+def select_block_seconds() -> dict:
+    """Host seconds of ``select_block`` at the paper grids: cold, with its
+    ranking's cache cleared first, then cached, the second call."""
+    calls = {"stencil25": (stencil25, (STENCIL_SHAPE, 4, torch.float64)),
+             "lbm_d3q15": (lbm, (LBM_SHAPE, torch.float64))}
+    out = {}
+    for name, (module, args) in calls.items():
+        module.rank_configs.cache_clear()
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            module.select_block(*args)
+            times.append(time.perf_counter() - t0)
+        out[name] = {"cold": times[0], "cached": times[1]}
+    return out
+
+
+def phase_rank() -> dict:
+    """Every configuration of both paper spaces timed against the one
+    predicted ranking (``benchmarks/torch_rank_check.py``); the tensors are
+    freed before the serve paths."""
+    res = rank_check.run(ROOT / "results" / "rank_check.json")
+    emit({"phase": "rank", **res})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_probe(libs: dict) -> dict:
@@ -862,6 +909,7 @@ def main() -> int:
     phase_check()
     main_results = phase_main_paper()
     phase_probe(probe_libs)
+    phase_rank()
     main_results += [phase_main_attention(), phase_main_wkv()]
     served = {path: phase_main_serve(path) for path in SERVE}
     for r in main_results:  # launches over every main path that runs the kernel

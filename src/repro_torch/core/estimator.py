@@ -9,20 +9,37 @@ model, estimate per lattice update:
 
 with either the enumeration (§III.D.1) or the symbolic (§III.D.2) footprint method.
 
-This is the reference path of ``repro.core.estimator`` (:func:`estimate` over
-the paper-faithful per-access primitives), copied operation for operation so
-that results stay bit-identical to it (held by ``tests/test_torch_estimator.py``).
-The batched ``estimate_many`` path and its cache are not part of the port.
+Two entry points share one pipeline, copied from ``repro.core.estimator``
+operation for operation so that results stay bit-identical to it:
+
+* :func:`estimate` — one configuration through the reference primitives (the
+  paper-faithful per-access implementation);
+* :func:`estimate_many` — a batch of configurations through cached, vectorized
+  primitives (:class:`EstimateCache`, :class:`_BatchPrims`): access grouping
+  hoisted per kernel, block footprints and bank-conflict cycles memoized, the
+  symbolic interval evaluation run per access group.  Its integer primitives
+  equal the reference's and the float assembly is the same
+  :func:`_estimate_one`, so its results equal :func:`estimate`'s bit for bit.
+
+``tests/test_torch_estimator.py`` and ``tests/test_torch_estimate_many.py``
+hold both `==` to ``repro.core``.  The JAX package's multi-machine batch
+(``estimate_many_machines``), its ``GPUAnalyticEstimator`` and its
+observability spans are not part of the port.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
+from typing import Callable, Iterable
 
 from . import footprint as fp_enum
 from . import symset as fp_sym
 from .address import KernelSpec, ThreadBox
-from .bankconflict import block_l1_cycles
+from .bankconflict import (
+    block_l1_cycles,
+    cycles_from_lane_matrices,
+    lane_address_matrices,
+)
 from .capacity import CapacityFits
 from .machine import V100, GPUMachine
 from .waves import interior_block_box, representative_waves, wave_size
@@ -91,7 +108,8 @@ def _set_bytes(sets, granularity: int, method: str) -> int:
 # The pipeline consumes four integer-valued primitives; everything else is
 # shared float assembly.  A primitive object returns, for line sets, a
 # ``(handle, nbytes)`` pair — the handle is whatever the same object's
-# ``overlap`` accepts (here the raw per-field sets).
+# ``overlap`` accepts (the raw per-field sets for the reference, a
+# ``(cache key, sets)`` pair for the batched path).
 
 
 class _RefPrims:
@@ -112,6 +130,230 @@ class _RefPrims:
 
     def warp_bytes(self, accesses, box: ThreadBox, granularity: int, stores) -> int:
         return fp_enum.warp_requested_bytes(accesses, box, granularity, stores=stores)
+
+
+class EstimateCache:
+    """Memoized sub-results shared across configurations (and machines).
+
+    Keys never include the machine: L1 block footprints and bank-conflict
+    cycles depend only on (accesses, block box, granularity), wave footprints
+    on (accesses, wave boxes, granularity) — so a cross-machine sweep through
+    one shared cache pays the machine-independent work once (wave boxes differ
+    per machine and naturally key apart; sector/line granularities coincide on
+    every registered GPU).  Access tuples are interned to small ints so hot
+    lookups hash a handful of scalars, not 50 frozen dataclasses.
+    """
+
+    def __init__(self):
+        self._acc_ids: dict[tuple, int] = {}
+        self._by_obj: dict[int, int] = {}  # id(tuple) -> aid fast path
+        self._obj_refs: dict[int, tuple] = {}  # keep interned tuples alive (id safety)
+        self.sets: dict[tuple, tuple] = {}  # key -> (key, sets, nbytes)
+        self.geom: dict[tuple, dict] = {}  # (method, aid, boxes, stores) -> {gran: sets}
+        self.cycles: dict[tuple, int] = {}
+        self.warp: dict[tuple, int] = {}
+        self.lanes: dict[tuple, tuple] = {}  # (aid, box, stores) -> (matrices, n)
+        self.groups: dict[tuple, dict] = {}
+        self.overlaps: dict[tuple, int] = {}
+        self.hits = 0
+        self.misses = 0
+
+    # memory bounds: wave-level sets are reused only within one configuration
+    # (and overlaps only within one wave pair), so on long sweeps those maps
+    # are mostly dead weight; the cheap integer results (cycles/warp) that
+    # cross-machine comparisons share are kept unconditionally
+    MAX_SET_ENTRIES = 4096
+    MAX_OBJ_IDS = 4096
+
+    def intern(self, accesses: tuple) -> int:
+        # id() first: hashing a 50-access tuple compares every frozen dataclass,
+        # which costs more than the lookups it guards when repeated per primitive
+        aid = self._by_obj.get(id(accesses))
+        if aid is not None:
+            return aid
+        aid = self._acc_ids.get(accesses)
+        if aid is None:
+            aid = len(self._acc_ids)
+            self._acc_ids[accesses] = aid
+        if len(self._by_obj) >= self.MAX_OBJ_IDS:
+            # cleared together: a stale id -> aid entry would mis-intern a new
+            # tuple that happens to reuse the id once the ref is dropped
+            self._by_obj.clear()
+            self._obj_refs.clear()
+        self._by_obj[id(accesses)] = aid
+        self._obj_refs[id(accesses)] = accesses
+        return aid
+
+    def trim(self) -> None:
+        """Drop the bulky footprint sets once they exceed the bound (they are
+        deterministic from their keys, so dropping can only cost recompute —
+        overlap values stay valid but are dropped with them for the bound)."""
+        if len(self.sets) > self.MAX_SET_ENTRIES:
+            self.sets.clear()
+            self.geom.clear()
+            self.overlaps.clear()
+
+    def l1_cycles(self, accesses: tuple, box: ThreadBox) -> int:
+        """Memoized interior-block bank-conflict cycles (machine-independent).
+
+        The single owner of the (accesses, box) key: the estimator's L1 stage
+        and the pruner's roofline bound both call this, so the bound's work is
+        reused by the full estimate that follows.
+        """
+        key = (self.intern(accesses), box)
+        v = self.cycles.get(key)
+        if v is None:
+            mats, n = lane_address_matrices(accesses, box, stores=False)
+            v = cycles_from_lane_matrices(mats, n)
+            self.cycles[key] = v
+        else:
+            self.hits += 1
+        return v
+
+    def __len__(self) -> int:
+        return len(self.sets) + len(self.cycles) + len(self.warp) + len(self.overlaps)
+
+
+class _BatchPrims:
+    """Cached + vectorized primitives for :func:`estimate_many`.
+
+    The symbolic method evaluates whole access groups per array op
+    (``symset.field_interval_sets_grouped``) and measures overlaps without
+    materializing intersections; the enumeration method batches address
+    construction per access group (``footprint.line_sets_batched``).
+    Integer outputs are identical to :class:`_RefPrims` by construction.
+    """
+
+    def __init__(self, cache: EstimateCache, method: str):
+        self.cache = cache
+        self.method = method
+        _, self.overlap_fn, self.m = _footprint_fns(method)
+
+    def _groups(self, aid: int, accesses, stores):
+        key = (aid, stores)
+        g = self.cache.groups.get(key)
+        if g is None:
+            g = fp_sym.group_accesses(accesses, stores=stores)
+            self.cache.groups[key] = g
+        return g
+
+    def _coarsened(self, geom_key, granularity: int):
+        """Derive the sets at ``granularity`` from cached finer-granularity sets
+        over the same (accesses, boxes, stores) geometry, if any exist.
+
+        Exact: a touched byte at fine index s lies at coarse index
+        ``s * g // G``, and this map carries unions to unions — so coarsening
+        the canonical fine set reproduces the reference coarse set bit-for-bit,
+        at the cost of re-merging a handful of already-merged intervals.
+        """
+        for g, sets in self.cache.geom.get(geom_key, {}).items():
+            if granularity % g == 0 and g != granularity:
+                f = granularity // g
+                return {
+                    name: fp_sym.IntervalSet(s.starts // f, (s.ends - 1) // f + 1)
+                    for name, s in sets.items()
+                }
+        return None
+
+    def line_sets(self, accesses, boxes, granularity: int, stores):
+        aid = self.cache.intern(accesses)
+        boxes = tuple(boxes)
+        key = (self.method, aid, boxes, granularity, stores)
+        hit = self.cache.sets.get(key)
+        if hit is not None:
+            self.cache.hits += 1
+            return hit[:2], hit[2]
+        self.cache.misses += 1
+        geom_key = (self.method, aid, boxes, stores)
+        sets = None
+        if self.method == "sym":
+            if stores is None:
+                # loads ∪ stores per field from the single-kind canonical sets
+                # (these are needed at this granularity anyway, or derivable)
+                (_, l_sets), _ = self.line_sets(accesses, boxes, granularity, False)
+                (_, s_sets), _ = self.line_sets(accesses, boxes, granularity, True)
+                sets = dict(l_sets)
+                for name, s in s_sets.items():
+                    sets[name] = sets[name].union(s) if name in sets else s
+            else:
+                sets = self._coarsened(geom_key, granularity)
+            if sets is None:
+                sets = fp_sym.field_interval_sets_grouped(
+                    self._groups(aid, accesses, stores), boxes, granularity
+                )
+        else:
+            # batched address-matrix construction: one broadcast per access
+            # group instead of one meshgrid per access (bit-identical sets)
+            sets = fp_enum.line_sets_batched(
+                accesses, boxes, granularity, groups=self._groups(aid, accesses, stores)
+            )
+        nbytes = _set_bytes(sets, granularity, self.m)
+        self.cache.trim()
+        self.cache.sets[key] = (key, sets, nbytes)
+        self.cache.geom.setdefault(geom_key, {})[granularity] = sets
+        return (key, sets), nbytes
+
+    def overlap(self, a_handle, b_handle, granularity: int) -> int:
+        a_key, a_sets = a_handle
+        b_key, b_sets = b_handle
+        okey = (a_key, b_key, granularity)
+        v = self.cache.overlaps.get(okey)
+        if v is None:
+            if self.method == "sym":
+                v = fp_sym.overlap_bytes_fast(a_sets, b_sets, granularity)
+            else:
+                v = self.overlap_fn(a_sets, b_sets, granularity)
+            self.cache.overlaps[okey] = v
+        else:
+            self.cache.hits += 1
+        return v
+
+    def _lane_mats(self, accesses, box: ThreadBox, stores):
+        """Per-(accesses, box, stores) address matrices, shared between the
+        bank-conflict (16-lane) and warp-request (32-lane) primitives.
+
+        Bounded: the matrices are only reused within one configuration's L1
+        stage (the derived integer results are what later configs/machines
+        hit), and holding hundreds of them would cost ~0.5 MB each.
+        """
+        key = (self.cache.intern(accesses), box, stores)
+        m = self.cache.lanes.get(key)
+        if m is None:
+            if len(self.cache.lanes) >= 8:
+                self.cache.lanes.clear()
+            m = lane_address_matrices(accesses, box, stores=stores)
+            self.cache.lanes[key] = m
+        else:
+            self.cache.hits += 1
+        return m
+
+    def l1_cycles(self, accesses, box: ThreadBox) -> int:
+        key = (self.cache.intern(accesses), box)
+        v = self.cache.cycles.get(key)
+        if v is None:
+            # not EstimateCache.l1_cycles: reuse this config's lane matrices,
+            # which the warp-request primitive is about to need as well
+            mats, n = self._lane_mats(accesses, box, stores=False)
+            v = cycles_from_lane_matrices(mats, n)
+            self.cache.cycles[key] = v
+        else:
+            self.cache.hits += 1
+        return v
+
+    def warp_bytes(self, accesses, box: ThreadBox, granularity: int, stores) -> int:
+        key = (self.cache.intern(accesses), box, granularity, stores)
+        v = self.cache.warp.get(key)
+        if v is None:
+            mats, n = self._lane_mats(accesses, box, stores)
+            v = fp_enum.requested_from_lane_matrices(mats, n, granularity)
+            self.cache.warp[key] = v
+        else:
+            self.cache.hits += 1
+        return v
+
+
+# --------------------------------------------------------------------------- #
+
 
 
 # --------------------------------------------------------------------------- #
@@ -234,3 +476,39 @@ def estimate(
     if fits is None:
         fits = machine.fits
     return _estimate_one(spec, machine, fits, method, _RefPrims(method))
+
+
+def estimate_many(
+    specs_or_configs: Iterable[KernelSpec | dict],
+    machine: GPUMachine = V100,
+    fits: CapacityFits | None = None,
+    method: str = "sym",
+    build: Callable[..., KernelSpec] | None = None,
+    cache: EstimateCache | None = None,
+) -> list[VolumeEstimate]:
+    """Batched :func:`estimate`: the same pipeline over shared, vectorized
+    primitives — bit-for-bit equal results, much cheaper per configuration.
+
+    ``specs_or_configs`` mixes ready :class:`KernelSpec`\\ s and config dicts
+    (the latter require ``build``, a ``(**config) -> KernelSpec`` callable).
+    Results come back in input order.  Pass a long-lived :class:`EstimateCache`
+    to share hoisted invariants across calls (chunked sweeps, multi-machine
+    comparisons); by default each call gets a fresh cache.
+    """
+    if fits is None:
+        fits = machine.fits
+    if cache is None:
+        cache = EstimateCache()
+    prims = _BatchPrims(cache, method)
+    out: list[VolumeEstimate] = []
+    for item in specs_or_configs:
+        if isinstance(item, KernelSpec):
+            spec = item
+        else:
+            if build is None:
+                raise TypeError(
+                    "estimate_many received a config dict but no build= callable"
+                )
+            spec = build(**item)
+        out.append(_estimate_one(spec, machine, fits, method, prims))
+    return out

@@ -52,10 +52,16 @@
 // and of the accumulator, so every value loaded from shared memory feeds 4
 // to 8 FMAs; K is stored transposed and Q, K and P with a padded row.
 //
+// Head dims.  The kernels take any D that is a multiple of 16 (whole mma
+// fragments; the P V loop steps O's n tiles in pairs, so D / 8 is even);
+// the dispatch compiles 16 (the models' smoke configs), 32, 64, 112
+// (Zamba2-7B), 128 (Qwen2.5-14B) and 160 (StableLM-12B) on every tile.
+//
 // Shared memory per block.  bf16: Q (BQ x (D+8)), then K and V (BKV x (D+8)
 // each) in two stages, in bf16: 87 KB at (64, 64), D = 128, so two blocks
-// share an SM.  f32: Q (BQ x (D+1)), K^T (D x (BKV+1)), V (BKV x D),
-// P (BQ x (BKV+1)), in f32: up to 165,376 B.  Both are dynamic shared
+// share an SM; at most 129,024 B, at (128, 64), D = 160.  f32: Q
+// (BQ x (D+1)), K^T (D x (BKV+1)), V (BKV x D), P (BQ x (BKV+1)), in f32: at
+// most 198,272 B, at (128, 64), D = 160.  Both are dynamic shared
 // memory, allowed per instantiation with cudaFuncSetAttribute.  This layout
 // is stated here only: flash_attention_attributes reports it, and a tile
 // that would exceed the 227 KB a block can have does not compile.
@@ -548,9 +554,12 @@ int attrs_d(int bq, int bkv, Attrs* out) {
 template <typename T>
 int launch_typed(int d, int bq, int bkv, const Args& a) {
   switch (d) {
+    case 16: return launch_d<T, 16>(bq, bkv, a);
     case 32: return launch_d<T, 32>(bq, bkv, a);
     case 64: return launch_d<T, 64>(bq, bkv, a);
+    case 112: return launch_d<T, 112>(bq, bkv, a);
     case 128: return launch_d<T, 128>(bq, bkv, a);
+    case 160: return launch_d<T, 160>(bq, bkv, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -558,9 +567,12 @@ int launch_typed(int d, int bq, int bkv, const Args& a) {
 template <typename T>
 int attrs_typed(int d, int bq, int bkv, Attrs* out) {
   switch (d) {
+    case 16: return attrs_d<T, 16>(bq, bkv, out);
     case 32: return attrs_d<T, 32>(bq, bkv, out);
     case 64: return attrs_d<T, 64>(bq, bkv, out);
+    case 112: return attrs_d<T, 112>(bq, bkv, out);
     case 128: return attrs_d<T, 128>(bq, bkv, out);
+    case 160: return attrs_d<T, 160>(bq, bkv, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

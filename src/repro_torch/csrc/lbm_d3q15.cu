@@ -148,4 +148,19 @@ int lbm_d3q15_attributes(int dtype, int* regs, int* local_bytes, int* max_thread
   return 0;
 }
 
+// Blocks of `threads` threads of the compiled instantiation that one SM of
+// the current card holds at once (no shared memory).
+int lbm_d3q15_occupancy(int dtype, int threads, int* blocks) {
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, lbm_d3q15_kernel<double>, threads, 0));
+    case 1:
+      return static_cast<int>(
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, lbm_d3q15_kernel<float>, threads, 0));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // extern "C"

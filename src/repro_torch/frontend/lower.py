@@ -1,14 +1,19 @@
 """GPU lowering of :class:`~repro_torch.frontend.ir.AccessIR`.
 
-:func:`lower_gpu` — element-granular IR -> :class:`repro_torch.core.address.KernelSpec`,
-the input of the paper §III GPU pipeline.  The translation is positional and
-arithmetic-free.  Copy of ``repro_torch.frontend.lower.lower_gpu``; the TPU lowering
-and the KernelSpec adapter are not part of the port.
+* :func:`lower_gpu` — element-granular IR -> :class:`repro_torch.core.address.KernelSpec`,
+  the input of the paper §III GPU pipeline.  The translation is positional and
+  arithmetic-free.
+* :func:`from_kernel_spec` — the canonical IR of an already-built
+  :class:`KernelSpec`, whose fingerprint breaks ties in
+  :func:`repro_torch.core.ranking.rank_configs`.
+
+Copies of ``repro.frontend.lower``'s two functions; its TPU lowering is not
+part of the port.
 """
 from __future__ import annotations
 
 from ..core.address import Access, Field, KernelSpec, LaunchConfig
-from .ir import AccessIR
+from .ir import AccessIR, IRAccess, IRField
 
 
 def _pad3(t: tuple[int, ...], fill: int) -> tuple[int, int, int]:
@@ -56,4 +61,36 @@ def lower_gpu(ir: AccessIR) -> KernelSpec:
         flops_per_lup=ir.flops_per_iter,
         regs_per_thread=ir.regs_per_thread,
         meta=dict(ir.meta),
+    )
+
+
+def from_kernel_spec(spec: KernelSpec) -> AccessIR:
+    """Canonical IR of an already-built KernelSpec (inverse of :func:`lower_gpu`)."""
+    return AccessIR(
+        name=spec.name,
+        fields=tuple(
+            IRField(
+                name=f.name,
+                shape=f.shape,
+                dtype_bits=f.element_size * 8,
+                alignment=f.alignment,
+                components=f.components,
+            )
+            for f in spec.fields
+        ),
+        accesses=tuple(
+            IRAccess(
+                field=a.field.name,
+                coeffs=a.coeffs,
+                offset=a.offset,
+                is_store=a.is_store,
+            )
+            for a in spec.accesses
+        ),
+        iter_shape=spec.launch.threads,
+        block=spec.launch.block,
+        lups_per_iter=spec.lups_per_thread,
+        flops_per_iter=spec.flops_per_lup,
+        regs_per_thread=spec.regs_per_thread,
+        meta=dict(spec.meta),
     )

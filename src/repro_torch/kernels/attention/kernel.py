@@ -23,7 +23,7 @@ from .ref import mha_plain
 # every head dim; the source states their shared memory and refuses, at
 # compile time, a tile that would not fit an H100 block
 TILES = ((32, 32), (64, 32), (64, 64), (128, 64))
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128, 160)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

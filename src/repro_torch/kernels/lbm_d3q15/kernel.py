@@ -32,6 +32,8 @@ def _lib() -> ctypes.CDLL:
     )
     lib.lbm_d3q15_attributes.restype = ctypes.c_int
     lib.lbm_d3q15_attributes.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.lbm_d3q15_occupancy.restype = ctypes.c_int
+    lib.lbm_d3q15_occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
@@ -91,3 +93,14 @@ def kernel_attributes(dtype: torch.dtype) -> dict:
         raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
     regs, local_bytes, max_threads = (v.value for v in vals)
     return {"registers": regs, "local_bytes": local_bytes, "max_threads_per_block": max_threads}
+
+
+def blocks_per_sm(dtype: torch.dtype, block: tuple[int, int, int]) -> int:
+    """Blocks of ``block`` that one SM of the current card holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), for comparison
+    with the estimator's wave, which counts the IR's registers."""
+    n = ctypes.c_int()
+    err = _lib().lbm_d3q15_occupancy(_DTYPE_CODES[dtype], block[0] * block[1] * block[2], ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed: CUDA error {err}")
+    return n.value

@@ -11,7 +11,7 @@ import functools
 import torch
 
 from ...core.appspec import lbm_config_space, lbm_d3q15
-from ...core.estimator import VolumeEstimate, estimate
+from ...core.estimator import EstimateCache, VolumeEstimate, estimate_many
 from ...core.machine import H100_SXM, GPUMachine
 from ...core.model import Prediction, predict
 from .kernel import lbm_d3q15_cuda
@@ -33,13 +33,12 @@ def rank_configs(
     shape: tuple[int, int, int], dtype: torch.dtype, machine: GPUMachine = H100_SXM
 ) -> tuple[tuple[dict, VolumeEstimate, Prediction], ...]:
     """Estimate and predict every configuration of :func:`config_space`, in
-    space order; cached per (shape, dtype, machine)."""
-    out = []
-    for cfg in config_space(shape, dtype):
-        spec = lbm_d3q15(**cfg)
-        est = estimate(spec, machine)
-        out.append((cfg, est, predict(spec, est, machine)))
-    return tuple(out)
+    space order, with the batched estimator (one fresh :class:`EstimateCache`
+    a call); cached per (shape, dtype, machine)."""
+    configs = config_space(shape, dtype)
+    specs = [lbm_d3q15(**cfg) for cfg in configs]
+    ests = estimate_many(specs, machine, cache=EstimateCache())
+    return tuple((cfg, est, predict(spec, est, machine)) for cfg, spec, est in zip(configs, specs, ests))
 
 
 def select_block(

@@ -87,14 +87,17 @@ def init_fields(
     dev = resolve_device(device)
     nz, ny, nx = shape
     rng = np.random.default_rng(seed)
-    z, y, x = np.meshgrid(
-        np.arange(nz), np.arange(ny), np.arange(nx), indexing="ij"
-    )
+    # broadcast axes in place of the reference's meshgrid: the same
+    # elementwise operations in the same order, so the same values
+    z, y, x = np.arange(nz)[:, None, None], np.arange(ny)[None, :, None], np.arange(nx)
     r0 = min(shape) / 4.0
     dist = np.sqrt(
         (z - nz / 2.0) ** 2 + (y - ny / 2.0) ** 2 + (x - nx / 2.0) ** 2
     )
     phase = 0.5 * (1.0 - np.tanh(2.0 * (dist - r0) / 4.0))
-    f = np.stack([w * phase for w in WEIGHTS], axis=0)
     vel = 0.01 * rng.standard_normal((3, nz, ny, nx))
-    return tuple(torch.as_tensor(a, dtype=dtype, device=dev) for a in (f, phase, vel))
+    # f = w_i * phase in f64, formed where it lives: 15 times phase's bytes
+    # never pass through the host
+    phase64 = torch.as_tensor(phase, device=dev)
+    f = torch.stack([w * phase64 for w in WEIGHTS])
+    return f.to(dtype), phase64.to(dtype), torch.as_tensor(vel, dtype=dtype, device=dev)

@@ -12,7 +12,7 @@ import functools
 import torch
 
 from ...core.appspec import star3d, stencil_config_space
-from ...core.estimator import VolumeEstimate, estimate
+from ...core.estimator import EstimateCache, VolumeEstimate, estimate_many
 from ...core.machine import H100_SXM, GPUMachine
 from ...core.model import Prediction, predict
 from .kernel import stencil25_cuda
@@ -36,14 +36,14 @@ def rank_configs(
     shape: tuple[int, int, int], r: int, dtype: torch.dtype, machine: GPUMachine = H100_SXM
 ) -> tuple[tuple[dict, VolumeEstimate, Prediction], ...]:
     """Estimate and predict every configuration of :func:`config_space`, in
-    space order.  Cached per (shape, r, dtype, machine): one ranking of the
-    full space at the paper's grid takes seconds of CPU."""
-    out = []
-    for cfg in config_space(shape, r, dtype):
-        spec = star3d(**cfg)
-        est = estimate(spec, machine)
-        out.append((cfg, est, predict(spec, est, machine)))
-    return tuple(out)
+    space order, with the batched estimator (one fresh :class:`EstimateCache`
+    a call; its results equal the per-config ``estimate``'s bit for bit).
+    Cached per (shape, r, dtype, machine): one ranking of the full space at
+    the paper's grid takes about a second of CPU."""
+    configs = config_space(shape, r, dtype)
+    specs = [star3d(**cfg) for cfg in configs]
+    ests = estimate_many(specs, machine, cache=EstimateCache())
+    return tuple((cfg, est, predict(spec, est, machine)) for cfg, spec, est in zip(configs, specs, ests))
 
 
 def select_block(

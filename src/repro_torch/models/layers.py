@@ -17,7 +17,7 @@ keys takes the plain cached attention, as the JAX package's XLA path does:
 no kernel computes those.  The choice follows the shapes and the cache
 length, which is a Python int, so it never waits for the card.
 
-``moe_block`` waits for ROADMAP Queue 1 item 6.
+``moe_block`` waits for ROADMAP Queue 1 item 3b.
 """
 from __future__ import annotations
 

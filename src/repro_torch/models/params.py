@@ -15,7 +15,7 @@ different numbers from one seed, so the tests carry the JAX package's tree
 across with ``convert.lm_params`` instead.
 
 The logical specs are kept for the port of the sharding rules (ROADMAP
-Queue 1 item 9); on one device nothing reads them.
+Queue 1 item 5); on one device nothing reads them.
 """
 from __future__ import annotations
 

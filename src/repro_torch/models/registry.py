@@ -8,7 +8,7 @@ The JAX package scans over stacked per-layer parameters; here each layer is
 a module of its own in an ``nn.ModuleList``, and :func:`unstack` turns the
 blueprint's stacked ``(L, ...)`` leaves into per-layer parameters (views of
 the stacked storage, so nothing is copied).  The parameters carry no
-gradients: the loss and training wait for ROADMAP Queue 1 item 7.
+gradients: the loss and training wait for ROADMAP Queue 1 item 4.
 
 The other families raise ``NotImplementedError`` naming their item.
 """
@@ -27,10 +27,10 @@ from .params import ParamDef, init_params, stack_blueprint, tree_map
 from .rwkv6 import rwkv6_block, rwkv6_defs
 
 NOT_PORTED = {
-    "moe": "moe_block (dbrx, grok) is not ported yet: ROADMAP.md Queue 1 item 6",
-    "hybrid": "mamba2 and the hybrid stack (zamba2) are not ported yet: ROADMAP.md Queue 1 item 6",
-    "audio": "the audio frontend (musicgen) is not ported yet: ROADMAP.md Queue 1 item 6",
-    "vlm": "the vision frontend (llava) is not ported yet: ROADMAP.md Queue 1 item 6",
+    "moe": "moe_block (dbrx, grok) is not ported yet: ROADMAP.md Queue 1 item 3b",
+    "hybrid": "mamba2 and the hybrid stack (zamba2) are not ported yet: ROADMAP.md Queue 1 item 3c",
+    "audio": "the audio frontend (musicgen) is not ported yet: ROADMAP.md Queue 1 item 3a",
+    "vlm": "the vision frontend (llava) is not ported yet: ROADMAP.md Queue 1 item 3a",
 }
 
 

@@ -153,6 +153,31 @@ def test_measured_order_lists_every_compiled_tile_once():
 
 
 
+# the head dims the card compiles besides 32, 64 and 128: the smoke configs'
+# 16, Zamba2-7B's shared attention's 112 and StableLM-12B's 160
+def test_new_head_dims_are_compiled_on_every_tile():
+    for d in (16, 112, 160):
+        assert all(compiled(*t, d) for t in TILES)
+        assert select_blocks(1, 32, 8, 512, d) == (64, 64)
+        assert select_blocks(1, 32, 8, 96, d) == (32, 32)
+        assert config_space(1, 32, 8, 512, d) == list(MEASURED_ORDER)
+
+
+# Zamba2-7B's 112 and StableLM-12B's 160 at StableLM's group of 4 and
+# Qwen2.5-14B's of 5, on the JAX interpret-mode kernel and mha_ref
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("d", [112, 160])
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (10, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_jax_at_head_dims_112_and_160(dtype, d, hq, hkv, causal):
+    (q, k, v), (qt, kt, vt) = _inputs(28, 1, hq, hkv, 128, d, dtype)
+    out = flash_attention(qt, kt, vt, causal=causal)  # the tile select_blocks picks
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    pallas = jax_flash_attention(q, k, v, causal=causal, block_q=64, block_kv=64, interpret=True)
+    np.testing.assert_allclose(_f32(out), _f32(pallas), **TOL[dtype])
+    np.testing.assert_allclose(_f32(out), _f32(mha_ref(q, k, v, causal=causal)), **TOL[dtype])
+
+
 def test_select_blocks_raises_where_no_tile_divides_s():
     with pytest.raises(ValueError):
         select_blocks(1, 4, 4, 48, 64)

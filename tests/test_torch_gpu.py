@@ -11,9 +11,11 @@ rtol 1e-2 (one bf16 ulp is at most 2^-7 |b|) and for WKV at 5e-4, 5e-4
 """
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.kernels.attention import flash_attention, flash_attention_cuda, mha_plain
 from repro_torch.kernels.attention.kernel import HEAD_DIMS, TILES
 from repro_torch.kernels.lbm_d3q15 import config_space as lbm_space
@@ -25,7 +27,9 @@ from repro_torch.kernels.wkv import wkv, wkv_cuda, wkv_plain
 from repro_torch.kernels.wkv.kernel import CHUNKS
 from repro_torch.kernels.wkv.kernel import HEAD_DIMS as WKV_HEAD_DIMS
 from repro_torch.models.layers import attention as model_attention
+from repro_torch.models.registry import build_model
 from repro_torch.models.rwkv6 import wkv_heads
+from repro_torch.serve.engine import ServeEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -235,3 +239,20 @@ def test_model_prefill_kernels_match_plain_when_padded(cuda):
     plain_out, plain_state = wkv_plain(rows(r), rows(kk), rows(vv), rows(wlog), u, s0.reshape(8, 64, 64))
     assert _close(rows(out), plain_out, 5e-4, 5e-4)
     assert _close(state.reshape(8, 64, 64), plain_state, 5e-4, 5e-4)
+
+
+def test_smoke_config_serves_the_same_greedy_tokens_on_the_card_and_the_cpu(cuda):
+    """Qwen2.5-14B's smoke config (head dim 16, f32): the same parameters,
+    drawn on the CPU and copied to the card, and the same prompts; the
+    card's prefill runs the flash kernel once per layer, its decode never."""
+    cfg = get_arch("qwen2.5-14b").smoke()
+    prompts = np.random.default_rng(11).integers(0, cfg.vocab, size=(3, 40)).astype(np.int32)
+    ref = ServeEngine(build_model(cfg, device="cpu", seed=0), max_len=64).generate(prompts, n_steps=8)
+    engine = ServeEngine(build_model(cfg, device="cpu", seed=0).to(cuda), max_len=64)
+    n = flash_attention_cuda.launches
+    tok, cache = engine.prefill(prompts)
+    assert flash_attention_cuda.launches == n + cfg.n_layers
+    rest = engine.decode(tok, cache, 7)
+    assert flash_attention_cuda.launches == n + cfg.n_layers
+    out = torch.cat([tok, rest], dim=1).to(torch.int32).cpu().numpy()
+    np.testing.assert_array_equal(out, ref)

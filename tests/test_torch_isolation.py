@@ -1,9 +1,11 @@
 """The port stands alone and never falls back silently.
 
-* Importing every ``repro_torch`` module, and ``chip_smoke.py``, loads no
-  ``jax`` and nothing of ``repro`` (checked in a fresh interpreter).
+* Importing every ``repro_torch`` module, ``chip_smoke.py``,
+  ``benchmarks/torch_rank_check.py`` or ``benchmarks/torch_ranking_host.py``
+  loads no ``jax`` and nothing of ``repro`` (checked in a fresh interpreter).
 * Without CUDA, the state-creating functions raise unless asked for the CPU,
-  ``chip_smoke.py`` exits non-zero and prints no result, and the CPU path
+  ``chip_smoke.py`` and the rank check exit non-zero and print no result,
+  and the CPU path
   leaves the kernels' launch counters alone.
 """
 from __future__ import annotations
@@ -52,7 +54,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert res["bad"] == []
     for name in ("repro_torch.convert", "repro_torch._build",
                  "repro_torch.kernels.stencil25.kernel", "repro_torch.kernels.lbm_d3q15.ops",
-                 "repro_torch.core.estimator", "repro_torch.frontend.lower",
+                 "repro_torch.core.estimator", "repro_torch.core.ranking",
+                 "repro_torch.frontend.lower",
                  "repro_torch.kernels.attention.kernel", "repro_torch.kernels.attention.ops",
                  "repro_torch.kernels.attention.ref", "repro_torch.kernels.wkv.kernel",
                  "repro_torch.kernels.wkv.ops", "repro_torch.kernels.wkv.ref",
@@ -62,6 +65,29 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "repro_torch.models.registry", "repro_torch.serve.engine",
                  "repro_torch.launch.serve"):
         assert name in res["modules"]
+
+
+@pytest.mark.parametrize("script", ["torch_rank_check", "torch_ranking_host"])
+def test_paper_path_benchmarks_import_no_jax_and_no_repro(script):
+    """``benchmarks/<script>.py``, imported alone."""
+    probe = (f"import json, sys; sys.path.insert(0, 'benchmarks'); import {script}; "
+             "print(json.dumps(sorted(m for m in sys.modules "
+             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))))")
+    out = subprocess.run(
+        [sys.executable, "-c", probe], env=_env(), cwd=ROOT,
+        capture_output=True, text=True, timeout=120, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_rank_check_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the rank check would run")
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "benchmarks" / "torch_rank_check.py")], env=_env(), cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0 and out.stdout == ""
 
 
 def test_state_defaults_to_cuda():
