@@ -2,13 +2,17 @@
 """Where the serving path's time goes on the card: a profiler trace of the
 prefill and of the decode steps.
 
-    python3 benchmarks/torch_serve_profile.py
+    python3 benchmarks/torch_serve_profile.py [ARCH ...]
 
 Needs an NVIDIA card and the CUDA toolkit (the port's kernels build on first
-use).  For each of Qwen2.5-14B, RWKV6-1.6B and StableLM-12B at full width (the shapes of
-``chip_smoke.py``'s serve paths: 4 requests of 512 prompt tokens, greedy),
-it builds the model with ``repro_torch.models.build_model``, warms up with
-one prefill and two decode steps, then:
+use).  For each of Qwen2.5-14B, RWKV6-1.6B, StableLM-12B, MusicGen-large,
+LLaVA-NeXT-34B, DBRX-132B and Zamba2-7B at full width (the shapes of
+``chip_smoke.py``'s serve paths: 4 requests of 512 prompt tokens, greedy;
+LLaVA and DBRX cut in depth to what one 80 GB card holds, with each kept
+layer drawn as the published model's: ``repro_torch.launch.one_card``), or
+for the configs named on the command line, it builds the model with
+``repro_torch.models.build_model``, warms up with one prefill and two decode
+steps, then:
 
 * times one prefill and ``STEPS`` decode steps with CUDA events, no profiler;
 * traces the same under ``torch.profiler`` (CPU and CUDA), one trace per
@@ -16,7 +20,11 @@ one prefill and two decode steps, then:
   kernel, copy and fill intervals), the span from the first device interval
   to the last, the idle share of that span, the kernels by total time, and
   the host-to-device copies and synchronising runtime calls the host made,
-  and the port's own kernels (flash attention, WKV) by launches and time.
+  and the port's own kernels (flash attention, WKV) by launches and time,
+  beside the launch counters' own count (``flash_launches``, ``wkv_launches``).
+
+Each line also carries the decode step's weight-bytes bound: the f32
+parameters read once over 3.35 TB/s.
 
 The profiler adds host time to every operator, so the traced spans are
 longer than the untraced times; the device intervals themselves are the
@@ -41,10 +49,15 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.kernels.attention.kernel import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.wkv.kernel import wkv_cuda  # noqa: E402
+from repro_torch.launch.one_card import one_card_config  # noqa: E402
+from repro_torch.models import build_model, param_count  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
-ARCHS = ("qwen2.5-14b", "rwkv6-1.6b", "stablelm-12b")
+ARCHS = ("qwen2.5-14b", "rwkv6-1.6b", "stablelm-12b", "musicgen-large", "llava-next-34b", "dbrx-132b",
+         "zamba2-7b")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 REQUESTS, PROMPT_LEN, STEPS = 4, 512, 8
 TRACE = ROOT / "build" / "serve_profile_trace.json"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -117,8 +130,9 @@ def traced(fn) -> dict:
 
 
 def profile_arch(arch: str) -> None:
-    cfg = get_arch(arch)
-    model = build_model(cfg, device="cuda", seed=0)
+    cfg, reduced = one_card_config(arch)
+    model = build_model(cfg, device="cuda", seed=0, init_depth=get_arch(arch).n_layers)
+    bound_ms = param_count(model.blueprint()) * 4 / HBM_BYTES_PER_S * 1e3
     engine = ServeEngine(model, max_len=PROMPT_LEN + STEPS + 8)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(REQUESTS, PROMPT_LEN)).astype(np.int32)
     tok, cache = engine.prefill(prompts)  # warm-up: cuBLAS handles, kernel builds
@@ -133,15 +147,17 @@ def profile_arch(arch: str) -> None:
 
     for phase, fn, per in (("prefill", prefill, 1), ("decode", decode, STEPS)):
         ms = events_ms(fn)
-        if phase == "prefill":
-            res = traced(prefill)
-        else:
+        if phase == "decode":
             prefill()  # a fresh cache for the traced steps
-            res = traced(decode)
+        counts = (flash_attention_cuda.launches, wkv_cuda.launches)
+        res = traced(fn)
         per_step = {k: (v / per if isinstance(v, float) else v) for k, v in res.items()
                     if k in ("device_busy_ms", "device_span_ms")}
-        print(json.dumps({"arch": cfg.name, "phase": phase, "steps": per, "untraced_ms": ms,
-                          "untraced_ms_per_step": ms / per, "per_step": per_step, **res}), flush=True)
+        print(json.dumps({"arch": cfg.name, "reduced": reduced, "phase": phase, "steps": per,
+                          "untraced_ms": ms, "untraced_ms_per_step": ms / per, "per_step": per_step,
+                          "flash_launches": flash_attention_cuda.launches - counts[0],
+                          "wkv_launches": wkv_cuda.launches - counts[1],
+                          "decode_bound_ms": bound_ms, **res}), flush=True)
     del model, engine, state, tok, cache
     gc.collect()
     torch.cuda.empty_cache()
@@ -151,7 +167,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_serve_profile: needs a CUDA card", file=sys.stderr)
         return 1
-    for arch in ARCHS:
+    for arch in sys.argv[1:] or ARCHS:
         profile_arch(arch)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()

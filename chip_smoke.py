@@ -8,8 +8,8 @@ the launch configuration from the address expressions alone, then the
 chosen hand-written CUDA kernel runs; and every configuration it ranks,
 timed, to check its ranking.  Beside it, GQA flash attention at
 Qwen2.5-14B's width and the chunked RWKV6 WKV at RWKV6-1.6B's width, each
-with the tile or chunk fixed by measurement, and three models served at
-full width.  Phases, one JSON line each:
+with the tile or chunk fixed by measurement, and one model of every family
+served at full width.  Phases, one JSON line each:
 
 1. device  — the card, its count, and ``nvidia-smi``'s name and power limit;
 2. build   — the four kernels built from ``src/repro_torch/csrc`` (one
@@ -62,18 +62,28 @@ full width.  Phases, one JSON line each:
    rank, its time over the fastest one's and the top-5 overlap per kernel
    (every configuration's figures in ``results/rank_check.json``);
 7. serve   — ``repro_torch.launch.serve.serve`` on the card at full width:
-   Qwen2.5-14B (all 48 layers, f32 parameters, bf16 compute), then
-   RWKV6-1.6B (all 24 layers) and StableLM-12B (all 40 layers, head dim
-   160), each answering 4 requests of 512 prompt
-   tokens with 16 new tokens, greedy, parameters drawn on the card from a
-   seeded generator.  The prefill must launch ``flash_attention`` (Qwen,
-   StableLM) or ``wkv`` (RWKV) once per layer and the decode neither.  The inputs the
-   model fed the kernel at the first and the last layer are held, kernel
-   against plain version: attention by ``ATTN_RULE``; WKV by
+   Qwen2.5-14B (all 48 layers, f32 parameters, bf16 compute), RWKV6-1.6B
+   (all 24 layers), StableLM-12B (all 40 layers, head dim 160),
+   MusicGen-large (all 48, head dim 64), LLaVA-NeXT-34B (24 of 60 layers,
+   56/8 heads), DBRX-132B (4 of 40 layers, 16 experts top-4) and Zamba2-7B
+   (all 81 Mamba2 layers, shared attention of head dim 112 after every 27),
+   each answering 4 requests of 512 prompt tokens with 16 new tokens,
+   greedy, parameters drawn on the card from a seeded generator; a depth
+   cut (``repro_torch.launch.one_card``: where the published depth does not
+   fit 80 GB in f32) is named on its line as ``reduced``, and its kept
+   layers are drawn at the published depth's std.  The prefill must launch ``flash_attention`` once per
+   attention layer (the hybrid's: once per group) or ``wkv`` (RWKV) once
+   per layer, and the decode neither.  MusicGen and LLaVA also run
+   ``forward`` on the model they served, at batch 1 with their frontend's
+   stub embeddings (512 audio frames of 768, 2304 vision patches of 1152)
+   and 256 text tokens after them, which must launch ``flash_attention``
+   once per layer and give finite logits.  The inputs the model fed the
+   kernel at the first and the last layer are held, kernel against plain
+   version, and timed: attention by ``ATTN_RULE``; WKV by
    ``WKV_SCALED_RULE`` (see there), with ``WKV_RULE``'s reading and the f32
-   plain version's reading against an f64 one beside it.  Prefill and decode
-   times (CUDA events), tokens per second, peak memory and the decode step
-   against its weight-bytes bound.
+   plain version's reading against an f64 one beside it.  Prefill and
+   decode times (CUDA events), tokens per second, peak memory and the
+   decode step against its weight-bytes bound.
 
 Then the ``nvidia-smi`` line, a ``kernels`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line, on
@@ -100,7 +110,6 @@ sys.path.insert(0, str(ROOT / "benchmarks"))
 
 # Fails here, before any result, where the port is not beside this script.
 from repro_torch import _build  # noqa: E402
-from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import appspec  # noqa: E402
 from repro_torch.kernels import attention  # noqa: E402
 from repro_torch.kernels import lbm_d3q15 as lbm  # noqa: E402
@@ -113,6 +122,8 @@ from repro_torch.kernels.wkv import kernel as wkv_kernel  # noqa: E402
 from repro_torch.core.machine import H100_SXM  # noqa: E402
 from repro_torch.core.waves import wave_size  # noqa: E402
 from repro_torch.kernels.stencil25.ref import star_offsets, star_weights_np  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.launch import one_card  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
@@ -156,12 +167,19 @@ WKV_RULE = (5e-4, 5e-4)
 WKV_SCALED_RULE = (5e-4, 5e-4)
 WKV_CHECK_HEADS = 3  # heads of the per-head bonus in the check phase: BH = 6
 MODEL_CHECK_SEQ = 100  # the model's kernel calls padded: to 128 (attention), 112 (WKV)
-SERVE = {  # main path: (config, the kernel its prefill must launch once per layer)
+SERVE = {  # main path: (config, the kernel its prefill must launch once per attention or WKV layer)
     "serve_qwen": ("qwen2.5-14b", "flash_attention"),
     "serve_rwkv": ("rwkv6-1.6b", "wkv"),
     "serve_stablelm": ("stablelm-12b", "flash_attention"),
+    "serve_musicgen": ("musicgen-large", "flash_attention"),
+    "serve_llava": ("llava-next-34b", "flash_attention"),
+    "serve_dbrx": ("dbrx-132b", "flash_attention"),
+    "serve_zamba2": ("zamba2-7b", "flash_attention"),
 }
 SERVE_SHAPE = {"requests": 4, "prompt_len": 512, "steps": 16}
+# text tokens after the frontend's stub embeddings (n_frontend_tokens of
+# frontend_dim) in the forward of a served config with a frontend
+FRONTEND_TEXT_TOKENS = 256
 OWN_PATH = {"stencil25": "paper", "lbm_d3q15": "paper", "flash_attention": "attention", "wkv": "wkv"}
 WKV_FLOPS_PER_TOKEN = 6  # times K^2 per head: the stepwise recurrence
 # the attention and WKV kernels' times at the main shapes before their
@@ -525,6 +543,22 @@ def bound_ms(n_bytes: float, flops: float, dtype) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def attention_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor) -> tuple[float, str]:
+    """``bound_ms`` of causal attention: q, k, v read and out written once;
+    QK^T and PV over the unmasked (query, key) pairs."""
+    b, hq, seq, d = q.shape
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+    return bound_ms(n_bytes, 4.0 * b * hq * d * seq * (seq + 1) / 2, q.dtype)
+
+
+def wkv_bound(r: torch.Tensor, u: torch.Tensor, with_s0: bool) -> tuple[float, str]:
+    """``bound_ms`` of the f32 WKV: r, k, v, wlog read and out written once,
+    u read, the final state written (and the initial one read)."""
+    bh, seq, kd = r.shape
+    n_bytes = 4.0 * (5 * bh * seq * kd + u.numel() + (1 + with_s0) * bh * kd * kd)
+    return bound_ms(n_bytes, float(WKV_FLOPS_PER_TOKEN * kd * kd * bh * seq), torch.float32)
+
+
 def conv3d_star(src: torch.Tensor, r: int) -> torch.Tensor:
     """The stencil's yardstick: one ``conv3d`` call with the star's weights
     in a (2r + 1)^3 kernel, zeros elsewhere.  It computes the interior
@@ -712,9 +746,8 @@ def phase_main_attention() -> dict:
                 for bq, bkv in attention.config_space(b, hq, hkv, seq, d, q.dtype)}
     plain_ms = time_ms(lambda: attention.mha_plain(q, k, v), reps=3, warmup=1)
     sdpa_ms = time_ms(sdpa)
-    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
     flops = 4.0 * b * hq * d * seq * (seq + 1) / 2  # QK^T and PV over the unmasked pairs
-    b_ms, b_by = bound_ms(n_bytes, flops, q.dtype)
+    b_ms, b_by = attention_bound(q, k, v, out)
     ms = tiles_ms[f"{tile[0]}x{tile[1]}"]
     one_ms = time_one_launch_ms(lambda: attn_kernel.flash_attention_cuda(q, k, v, True, *tile))
     res = {"name": "flash_attention", "shape": ATTN_SHAPE, "dtype": "bfloat16", "causal": True,
@@ -755,9 +788,7 @@ def phase_main_wkv() -> dict:
                  for c in wkv.config_space(bh, seq, kd)}
     plain_ms = time_ms(lambda: wkv.wkv_plain(*inputs), reps=2, warmup=1)
     # r, k, v, wlog read and out written once; u read and the final state written
-    n_bytes = 4.0 * (5 * bh * seq * kd + kd + bh * kd * kd)
-    flops = float(WKV_FLOPS_PER_TOKEN * kd * kd * bh * seq)
-    b_ms, b_by = bound_ms(n_bytes, flops, torch.float32)
+    b_ms, b_by = wkv_bound(inputs[0], inputs[4], with_s0=False)
     ms = chunks_ms[f"L{chunk}"]
     one_ms = time_one_launch_ms(lambda: wkv_kernel.wkv_cuda(*inputs, chunk=chunk))
     res = {"name": "wkv", "shape": WKV_SHAPE, "dtype": "float32", "chunk": chunk, "ms": ms,
@@ -795,7 +826,8 @@ def wkv_f64(r, k, v, wlog, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def captured_reading(kernel_name: str, args: tuple, kw: dict) -> dict:
-    """The kernel against its plain version on inputs the model fed it."""
+    """The kernel against its plain version on inputs the model fed it,
+    and its time a launch there (``time_ms``)."""
     if kernel_name == "flash_attention":
         q, k, v = args
         b, hq, seq, d = q.shape
@@ -807,6 +839,10 @@ def captured_reading(kernel_name: str, args: tuple, kw: dict) -> dict:
         # TOL[bf16] is an absolute limit for unit-scale values; here the
         # outputs are tens, where one bf16 ulp is 0.0625 to 0.25
         res["tol_holds"] = res.pop("tol") >= res["max_abs_err"]
+        res["max_logit"] = max(float(torch.matmul(q[bi, h].float(), k[bi, h // (hq // k.shape[1])].float().T)
+                                     .tril().abs().max()) for bi in range(b) for h in (0, hq - 1)) / math.sqrt(d)
+        res["ms"] = time_ms(lambda: attn_kernel.flash_attention_cuda(q, k, v, True, *tile))
+        res["bound_ms"], res["bound_by"] = attention_bound(q, k, v, out)
         return res
     r, k, v, wlog, u = args
     s0 = kw["s0"]
@@ -814,7 +850,9 @@ def captured_reading(kernel_name: str, args: tuple, kw: dict) -> dict:
     got = wkv_kernel.wkv_cuda(r, k, v, wlog, u, chunk=chunk, s0=s0)
     plain = wkv.wkv_plain(r, k, v, wlog, u, s0)
     f64 = wkv_f64(r, k, v, wlog, u, s0)
-    res = {"shape": list(r.shape), "u": list(u.shape), "chunk": chunk, **wkv_reading(got, plain)}
+    res = {"shape": list(r.shape), "u": list(u.shape), "chunk": chunk, **wkv_reading(got, plain),
+           "ms": time_ms(lambda: wkv_kernel.wkv_cuda(r, k, v, wlog, u, chunk=chunk, s0=s0))}
+    res["bound_ms"], res["bound_by"] = wkv_bound(r, u, with_s0=True)
     res["wkv_rule_ratio"] = res.pop("max_ratio")  # reported; no f32 result meets it here
     res["max_ratio"] = max(scaled_ratio(a, b, WKV_SCALED_RULE) for a, b in zip(got, plain))
     res["rule"] = f"|a-b| <= {WKV_SCALED_RULE[0]} rms(b) + {WKV_SCALED_RULE[1]}|b|"
@@ -824,17 +862,45 @@ def captured_reading(kernel_name: str, args: tuple, kw: dict) -> dict:
     return res
 
 
+def frontend_forward(model) -> dict:
+    """``model.forward`` at batch 1 with the frontend's stub embeddings over
+    the first ``n_frontend_tokens`` positions and ``FRONTEND_TEXT_TOKENS``
+    text tokens after them, all drawn from seed 0 on the card; the launch
+    counts of the call and whether its logits are finite."""
+    cfg = model.cfg
+    seq = cfg.n_frontend_tokens + FRONTEND_TEXT_TOKENS
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (1, seq), generator=gen, device="cuda")
+    embeds = torch.randn((1, cfg.n_frontend_tokens, cfg.frontend_dim), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    zero_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    with torch.inference_mode():
+        logits, aux = model(tokens, embeds)
+    end.record()
+    end.synchronize()
+    return {"batch": 1, "seq": seq, "frontend_tokens": cfg.n_frontend_tokens, "ms": start.elapsed_time(end),
+            "launches": read_counts(), "logits_shape": list(logits.shape),
+            "logits_finite": bool(torch.isfinite(logits).all()), "aux": float(aux)}
+
+
 def phase_main_serve(path: str) -> dict:
-    """``launch.serve.serve`` at full width on the card: ``SERVE_SHAPE`` on
-    the config of ``path``.  The kernel's inputs at the first and the last
-    layer of the prefill are kept (references to the tensors the model
-    made, the WKV's initial state copied, since the cache's is updated in
-    place) and held against the plain version after the run; the prefill's
-    logits and the last decode step's are kept and must be finite."""
+    """``launch.serve.serve`` on the card: ``SERVE_SHAPE`` on the config of
+    ``path``, at its published widths and at the depth one card holds.  The
+    kernel's inputs at the first and the last layer of the prefill are kept
+    (references to the tensors the model made, the WKV's initial state
+    copied, since the cache's is updated in place) and held against the
+    plain version after the run; the prefill's logits and the last decode
+    step's are kept and must be finite.  A config with a frontend then runs
+    :func:`frontend_forward` on the model the serving path built, its
+    kernel inputs held the same way."""
     arch, kernel_name = SERVE[path]
+    cfg, reduced = one_card.one_card_config(arch)
+    calls = one_card.attention_layers(cfg) if kernel_name == "flash_attention" else cfg.n_layers
     module, attr = (model_layers, "flash_attention") if kernel_name == "flash_attention" else (model_rwkv6, "wkv")
-    original, head = getattr(module, attr), model_registry.LM._head
-    captured, logits = {}, []
+    original, head, build = getattr(module, attr), model_registry.LM._head, launch_serve.build_model
+    captured, logits, models = {}, [], []
 
     def capture(*args, **kw):
         inputs = (args, {k: v.clone() if k == "s0" else v for k, v in kw.items()})
@@ -848,51 +914,75 @@ def phase_main_serve(path: str) -> dict:
         del logits[1:-1]  # [the prefill's, the latest step's]
         return out
 
+    def keep_model(*args, **kw):
+        models.append(build(*args, **kw))
+        return models[-1]
+
     gc.collect()
     torch.cuda.empty_cache()
     setattr(module, attr, capture)
     model_registry.LM._head = keep_logits
+    launch_serve.build_model = keep_model
+    frontend, frontend_inputs = None, {}
     try:
         zero_counts()
         t0 = time.perf_counter()
-        res = launch_serve.serve(arch, device="cuda", **SERVE_SHAPE)
+        res = launch_serve.serve(cfg, device="cuda", init_depth=get_arch(arch).n_layers, **SERVE_SHAPE)
         torch.cuda.synchronize()
         main_s = time.perf_counter() - t0
         launches = read_counts()
+        finite = {"prefill": bool(torch.isfinite(logits[0]).all()),
+                  "last_step": bool(torch.isfinite(logits[-1]).all())}
+        prefill_logits = list(logits[0].shape)
+        logits.clear()
+        serve_inputs = dict(captured)
+        if cfg.frontend != "none":
+            captured.clear()
+            frontend = frontend_forward(models[0])
+            frontend_inputs = dict(captured)
+            logits.clear()
     finally:
         setattr(module, attr, original)
         model_registry.LM._head = head
-    n_layers = res["n_layers"]
-    want = {name: n_layers if name == kernel_name else 0 for name in KERNELS}
+        launch_serve.build_model = build
+        models.clear()
+    want = {name: calls if name == kernel_name else 0 for name in KERNELS}
     by_phase = res.pop("launches")
-    if launches != want or by_phase["prefill"][kernel_name] != n_layers:
-        fail(f"{path}: the prefill must launch {kernel_name} once per layer ({n_layers}) and "
-             f"nothing else: {launches}, by phase {by_phase}")
+    if launches != want or by_phase["prefill"][kernel_name] != calls:
+        fail(f"{path}: the prefill must launch {kernel_name} once per attention or WKV layer ({calls}) "
+             f"and nothing else: {launches}, by phase {by_phase}")
     if any(by_phase["decode"].values()):
         fail(f"{path}: the decode launched a kernel: {by_phase['decode']}")
     tokens = res.pop("tokens")
-    vocab = get_arch(arch).vocab
     shape = (SERVE_SHAPE["requests"], SERVE_SHAPE["steps"])
-    if tokens.shape != shape or tokens.min() < 0 or tokens.max() >= vocab:
+    if tokens.shape != shape or tokens.min() < 0 or tokens.max() >= cfg.vocab:
         fail(f"{path}: tokens of shape {tokens.shape} in [{tokens.min()}, {tokens.max()}]")
-    finite = {"prefill": bool(torch.isfinite(logits[0]).all()), "last_step": bool(torch.isfinite(logits[-1]).all())}
-    prefill_logits = list(logits[0].shape)
-    del logits
-    readings = {which: captured_reading(kernel_name, *captured[which]) for which in ("first", "last")}
-    del captured
+    readings = {which: captured_reading(kernel_name, *serve_inputs[which]) for which in ("first", "last")}
+    if frontend is not None:
+        frontend["captured"] = {which: captured_reading(kernel_name, *frontend_inputs[which])
+                                for which in ("first", "last")}
+    del captured, serve_inputs, frontend_inputs
     bound = res["params"] * 4 / HBM_BYTES_PER_S * 1e3  # f32 weights read once
-    out = {"phase": "main", "path": path, "seconds": main_s, "launches": launches,
-           "launches_by_phase": by_phase, **res,
+    out = {"phase": "main", "path": path, "reduced": reduced, "attention_layers": one_card.attention_layers(cfg),
+           "seconds": main_s, "launches": launches, "launches_by_phase": by_phase, **res,
            "max_memory_allocated": res["peak_memory_bytes"],
            "decode_bound_ms": bound, "decode_over_bound": res["decode_ms_per_step"] / bound,
            "prefill_logits_shape": prefill_logits, "logits_finite": finite,
-           "first_tokens": tokens[:, :8].tolist(), "captured": readings}
+           "first_tokens": tokens[:, :8].tolist(), "captured": readings, "frontend": frontend}
     emit(out)
     if not all(finite.values()):
         fail(f"{path}: logits are not finite: {finite}")
     bad = {w: r for w, r in readings.items() if not r["max_ratio"] <= 1.0}
     if bad:
         fail(f"{path}: {kernel_name} disagrees with its plain version on the model's inputs: {bad}")
+    if frontend is not None:
+        want = {name: cfg.n_layers if name == "flash_attention" else 0 for name in KERNELS}
+        if frontend["launches"] != want or not frontend["logits_finite"]:
+            fail(f"{path}: the frontend forward must launch flash_attention once per layer "
+                 f"({cfg.n_layers}) and give finite logits: {frontend}")
+        bad = {w: r for w, r in frontend["captured"].items() if not r["max_ratio"] <= 1.0}
+        if bad:
+            fail(f"{path}: flash_attention disagrees with its plain version in the frontend forward: {bad}")
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -917,6 +1007,8 @@ def main() -> int:
         for path, res in served.items():
             if res["launches"][r["name"]]:
                 r["launches_by_path"][path] = res["launches"][r["name"]]
+            if res["frontend"] and res["frontend"]["launches"][r["name"]]:
+                r["launches_by_path"][f"{path}_frontend"] = res["frontend"]["launches"][r["name"]]
         r["launches"] = sum(r["launches_by_path"].values())
     kernels = [{"name": r["name"], "route": "cuda", "source": KERNELS[r["name"]][1],
                 "replaces": KERNELS[r["name"]][2], "launches": r["launches"],

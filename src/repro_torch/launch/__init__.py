@@ -1,1 +1,2 @@
-"""Command-line entry points of the port."""
+"""Entry points of the port: serving (``serve``) and what of a config one
+card holds (``one_card``)."""

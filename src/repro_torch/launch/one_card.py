@@ -1,0 +1,41 @@
+"""What of a config one 80 GB card serves: the depth cut and the attention
+layers a prefill runs.
+
+Widths stay the published ones.  Where the published depth does not fit one
+card in f32 (``ArchConfig.n_params()`` x 4 B) with room for the per-use bf16
+weight casts (DBRX's 16 experts: 6.3 GB a layer), the config keeps its first
+``ONE_CARD_LAYERS`` layers: LLaVA-NeXT-34B 24 of 60 (57.22 GB), DBRX-132B 4
+of 40 (57.08 GB).  A cut model is built with ``init_depth`` set to the
+published depth (``build_model``, ``launch.serve.serve``), so that each
+layer it keeps is drawn as the published model's: the fan-in rule draws
+every stacked block weight with std ``scale / sqrt(n_layers)``, which at 24
+of 60 layers would be 1.58 times the published one and at 4 of 40 3.16
+times.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from ..configs import ArchConfig, get_arch
+
+ONE_CARD_LAYERS = {"llava-next-34b": 24, "dbrx-132b": 4}
+
+
+def one_card_config(arch: str) -> tuple[ArchConfig, dict]:
+    """The config of ``arch`` at the depth one card holds, and the cut as
+    ``{"n_layers": [kept, published]}`` ({} where there is none).  Build it
+    with ``init_depth=get_arch(arch).n_layers``."""
+    cfg = get_arch(arch)
+    kept = ONE_CARD_LAYERS.get(arch)
+    if kept is None:
+        return cfg, {}
+    return dataclasses.replace(cfg, n_layers=kept), {"n_layers": [kept, cfg.n_layers]}
+
+
+def attention_layers(cfg: ArchConfig) -> int:
+    """The attention layers a prefill of ``cfg`` runs: every layer, none in
+    the ssm family, one shared block per group of ``shared_attn_period`` in
+    the hybrid."""
+    if cfg.family == "ssm":
+        return 0
+    return cfg.n_layers // cfg.shared_attn_period if cfg.family == "hybrid" else cfg.n_layers

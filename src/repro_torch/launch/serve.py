@@ -22,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from ..configs import get_arch
+from ..configs import ArchConfig, get_arch
 from ..device import resolve_device
 from ..kernels.attention.kernel import flash_attention_cuda
 from ..kernels.wkv.kernel import wkv_cuda
@@ -52,25 +52,29 @@ def _timed(fn, device: torch.device):
 
 
 def serve(
-    arch: str,
+    arch: str | ArchConfig,
     smoke: bool = False,
     requests: int = 4,
     prompt_len: int = 8,
     steps: int = 16,
     temperature: float = 0.0,
     device: str | torch.device | None = None,
+    init_depth: int | None = None,
 ) -> dict:
-    """Builds ``arch`` on ``device`` (default ``"cuda"``), answers
-    ``requests`` prompts of ``prompt_len`` tokens with ``steps`` tokens
-    each, and returns what it measured and the tokens (B, steps) int32."""
+    """Builds ``arch`` (a registry name, or a config such as one cut to
+    fewer layers than a card holds, ``launch.one_card``) on ``device``
+    (default ``"cuda"``), answers ``requests`` prompts of ``prompt_len``
+    tokens with ``steps`` tokens each, and returns what it measured and the
+    tokens (B, steps) int32.  ``init_depth`` goes to ``build_model``: a cut
+    config passes its published depth."""
     dev = resolve_device(device)
-    cfg = get_arch(arch)
+    cfg = get_arch(arch) if isinstance(arch, str) else arch
     if smoke:
         cfg = cfg.smoke()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    model = build_model(cfg, device=dev, seed=0)
+    model = build_model(cfg, device=dev, seed=0, init_depth=init_depth)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     init_s = time.perf_counter() - t0

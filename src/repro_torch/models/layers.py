@@ -1,4 +1,4 @@
-"""Shared neural-net layers: norms, RoPE, GQA attention, MLPs.
+"""Shared neural-net layers: norms, RoPE, GQA attention, MLPs, routed MoE.
 
 Counterpart of ``repro.models.layers``, as plain functions on tensors, with
 the same arithmetic: statistics in f32, weights stored in the parameter
@@ -17,7 +17,13 @@ keys takes the plain cached attention, as the JAX package's XLA path does:
 no kernel computes those.  The choice follows the shapes and the cache
 length, which is a Python int, so it never waits for the card.
 
-``moe_block`` waits for ROADMAP Queue 1 item 3b.
+``moe_block`` is the reference's GShard top-k capacity routing with dense
+one-hot dispatch and combine, plain PyTorch as the JAX package's is plain
+XLA.  Two PyTorch calls differ from their JAX namesakes and are replaced:
+``torch.topk`` promises no order among equal values, where
+``jax.lax.top_k`` puts the lower index first (a stable descending sort does
+too), and ``F.one_hot`` raises on an index past its classes, where
+``jax.nn.one_hot`` gives a zero row (the slot is clamped, then masked).
 """
 from __future__ import annotations
 
@@ -227,3 +233,78 @@ def mlp(cfg: ArchConfig, p: Params, x):
         return h @ p["w_down"].to(cdt)
     # jax.nn.gelu's default is the tanh approximation
     return F.gelu(x @ p["w_in"].to(cdt), approximate="tanh") @ p["w_down"].to(cdt)
+
+
+# --------------------------------------------------------------------------- #
+# MoE (GShard-style top-k capacity routing, dense one-hot dispatch)
+# --------------------------------------------------------------------------- #
+
+
+def moe_defs(cfg: ArchConfig) -> dict:
+    assert cfg.moe is not None
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    defs = {"router": ParamDef((d, E), (None, None), scale=0.1)}
+    if cfg.mlp == "swiglu":
+        defs.update(
+            w_gate=ParamDef((E, d, ff), ("ep", "fsdp", "tp")),
+            w_up=ParamDef((E, d, ff), ("ep", "fsdp", "tp")),
+            w_down=ParamDef((E, ff, d), ("ep", "tp", "fsdp")),
+        )
+    else:
+        defs.update(
+            w_in=ParamDef((E, d, ff), ("ep", "fsdp", "tp")),
+            w_down=ParamDef((E, ff, d), ("ep", "tp", "fsdp")),
+        )
+    return defs
+
+
+def moe_block(cfg: ArchConfig, p: Params, x):
+    """Top-k routed MoE with per-sequence expert capacity; ``cfg.moe_group
+    > 0`` routes in groups of that many tokens along S (when S is a larger
+    multiple of it).  Returns (out, aux_loss)."""
+    assert cfg.moe is not None
+    B, S, d = x.shape
+    G = cfg.moe_group
+    if G and S > G and S % G == 0:
+        yg, aux = _moe_routed(cfg, p, x.reshape(B * (S // G), G, d))
+        return yg.reshape(B, S, d), aux
+    return _moe_routed(cfg, p, x)
+
+
+def top_k(x, k: int):
+    """(values, indices) of the ``k`` largest entries along the last axis,
+    equal values lower index first, as ``jax.lax.top_k`` orders them."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_routed(cfg: ArchConfig, p: Params, x):
+    B, S, d = x.shape
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    C = max(1, int(S * K * cfg.moe.capacity_factor / E))
+    cdt = x.dtype
+    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)  # (B,S,E)
+    gate_vals, gate_idx = top_k(probs, K)  # (B,S,K)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    # load-balance auxiliary loss (Switch): E * sum_e f_e * p_e
+    me = probs.mean(dim=(0, 1))
+    expert_sel = F.one_hot(gate_idx, E).float()  # (B,S,K,E)
+    fe = expert_sel.sum(2).mean(dim=(0, 1))
+    aux = E * (me * fe).sum()
+    # slot of each (token, k) within its expert: a count over (S, K), s-major
+    cum = expert_sel.reshape(B, S * K, E).cumsum(1).reshape(B, S, K, E)
+    pos = ((cum - expert_sel) * expert_sel).sum(-1)  # (B,S,K)
+    keep = (pos < C).float()
+    gate_vals = gate_vals * keep
+    pos_oh = F.one_hot(pos.long().clamp_max(C - 1), C).float() * keep[..., None]
+    dispatch = torch.einsum("bske,bskc->bsec", expert_sel, pos_oh).to(cdt)  # (B,S,E,C)
+    combine = torch.einsum("bsk,bske,bskc->bsec", gate_vals, expert_sel, pos_oh)  # f32
+    xe = torch.einsum("bsec,bsd->becd", dispatch, x)  # (B,E,C,d)
+    if cfg.mlp == "swiglu":
+        h = F.silu(torch.einsum("becd,edf->becf", xe, p["w_gate"].to(cdt)))
+        h = h * torch.einsum("becd,edf->becf", xe, p["w_up"].to(cdt))
+    else:
+        h = F.gelu(torch.einsum("becd,edf->becf", xe, p["w_in"].to(cdt)), approximate="tanh")
+    ye = torch.einsum("becf,efd->becd", h, p["w_down"].to(cdt))
+    y = torch.einsum("bsec,becd->bsd", combine, ye.float())
+    return y.to(cdt), aux

@@ -1,19 +1,26 @@
-"""LM assembly for the dense and SSM families.
+"""LM assembly for every family of the registry.
 
 Counterpart of ``repro.models.registry``.  One :class:`LM` module covers:
-  * dense : pre-norm GQA transformer (``DenseBlock``)
-  * ssm   : RWKV6 Finch stack, attention-free (``RWKV6Block``)
+  * dense / audio / vlm : pre-norm GQA transformer (``DenseBlock``); audio
+                          and vlm project the frontend's stub embeddings
+                          over the first positions (``frontend_proj``)
+  * moe                 : the same skeleton with a routed-MoE MLP
+  * ssm                 : RWKV6 Finch stack, attention-free (``RWKV6Block``)
+  * hybrid              : Zamba2, Mamba2 blocks (``Mamba2Block``) with one
+                          *shared* attention and MLP block (a ``DenseBlock``)
+                          applied after every ``shared_attn_period`` of them
 
 The JAX package scans over stacked per-layer parameters; here each layer is
 a module of its own in an ``nn.ModuleList``, and :func:`unstack` turns the
 blueprint's stacked ``(L, ...)`` leaves into per-layer parameters (views of
 the stacked storage, so nothing is copied).  The parameters carry no
-gradients: the loss and training wait for ROADMAP Queue 1 item 4.
-
-The other families raise ``NotImplementedError`` naming their item.
+gradients: ``loss`` is forward-only, and training waits for ROADMAP Queue 1
+item 4.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Any, Mapping, Optional
 
@@ -22,16 +29,11 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from .layers import apply_norm, attention_block, attention_defs, mlp, mlp_defs, norm_defs
+from .layers import (apply_norm, attention_block, attention_defs, mlp, mlp_defs, moe_block, moe_defs,
+                     norm_defs)
+from .mamba2 import CONV_WIDTH, mamba2_block, mamba2_defs
 from .params import ParamDef, init_params, stack_blueprint, tree_map
 from .rwkv6 import rwkv6_block, rwkv6_defs
-
-NOT_PORTED = {
-    "moe": "moe_block (dbrx, grok) is not ported yet: ROADMAP.md Queue 1 item 3b",
-    "hybrid": "mamba2 and the hybrid stack (zamba2) are not ported yet: ROADMAP.md Queue 1 item 3c",
-    "audio": "the audio frontend (musicgen) is not ported yet: ROADMAP.md Queue 1 item 3a",
-    "vlm": "the vision frontend (llava) is not ported yet: ROADMAP.md Queue 1 item 3a",
-}
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -40,10 +42,7 @@ def _dtype(name: str) -> torch.dtype:
 
 def blueprint(cfg: ArchConfig) -> dict:
     """The parameter tree of ``cfg``, with stacked ``(L, ...)`` block leaves,
-    as the JAX ``LM.blueprint`` builds it; ``NotImplementedError`` for a
-    family the port does not cover."""
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED[cfg.family]}")
+    as the JAX ``LM.blueprint`` builds it."""
     d, V = cfg.d_model, cfg.vocab
     bp: dict[str, Any] = {
         "embed": ParamDef((V, d), ("tp", "fsdp"), scale=1.0),
@@ -51,11 +50,20 @@ def blueprint(cfg: ArchConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         bp["unembed"] = ParamDef((d, V), ("fsdp", "tp"))
+    if cfg.frontend != "none":
+        bp["frontend_proj"] = ParamDef((cfg.frontend_dim, d), (None, "tp"))
     if cfg.family == "ssm":
         bp["blocks"] = stack_blueprint(rwkv6_defs(cfg), cfg.n_layers)
+    elif cfg.family == "hybrid":
+        bp["blocks"] = stack_blueprint({"ln": norm_defs(cfg), "mamba": mamba2_defs(cfg)}, cfg.n_layers)
+        bp["shared_attn"] = {"ln1": norm_defs(cfg), "attn": attention_defs(cfg), "ln2": norm_defs(cfg),
+                             "mlp": mlp_defs(cfg)}
     else:
-        block = {"ln1": norm_defs(cfg), "attn": attention_defs(cfg), "ln2": norm_defs(cfg),
-                 "mlp": mlp_defs(cfg)}
+        block = {"ln1": norm_defs(cfg), "attn": attention_defs(cfg), "ln2": norm_defs(cfg)}
+        if cfg.moe is not None:
+            block["moe"] = moe_defs(cfg)
+        else:
+            block["mlp"] = mlp_defs(cfg)
         bp["blocks"] = stack_blueprint(block, cfg.n_layers)
     return bp
 
@@ -99,19 +107,29 @@ def _group(state: Mapping[str, torch.Tensor], prefix: str) -> nn.ParameterDict:
 
 
 class DenseBlock(nn.Module):
-    """Pre-norm GQA attention and MLP with residuals."""
+    """Pre-norm GQA attention and an MLP (or a routed MoE) with residuals.
+    The hybrid's shared attention block is one of these too."""
 
     def __init__(self, cfg: ArchConfig, state: Mapping[str, torch.Tensor]):
         super().__init__()
         self.cfg = cfg
-        self.ln1, self.attn = _group(state, "ln1"), _group(state, "attn")
-        self.ln2, self.mlp = _group(state, "ln2"), _group(state, "mlp")
+        self.ln1, self.attn, self.ln2 = _group(state, "ln1"), _group(state, "attn"), _group(state, "ln2")
+        if cfg.moe is not None:
+            self.moe = _group(state, "moe")
+        else:
+            self.mlp = _group(state, "mlp")
 
     def forward(self, x, positions, kv_cache: Optional[dict] = None):
+        """Returns (x, the MoE's aux loss or None, the cache)."""
         cfg = self.cfg
         a, new_cache = attention_block(cfg, self.attn, apply_norm(cfg, self.ln1, x), positions, kv_cache)
         x = x + a
-        return x + mlp(cfg, self.mlp, apply_norm(cfg, self.ln2, x)), new_cache
+        h = apply_norm(cfg, self.ln2, x)
+        if cfg.moe is not None:
+            m, aux = moe_block(cfg, self.moe, h)
+        else:
+            m, aux = mlp(cfg, self.mlp, h), None
+        return x + m, aux, new_cache
 
 
 class RWKV6Block(nn.Module):
@@ -129,11 +147,24 @@ class RWKV6Block(nn.Module):
         return x + out, new_state
 
 
+class Mamba2Block(nn.Module):
+    """A Mamba2 block behind its norm, with a residual."""
+
+    def __init__(self, cfg: ArchConfig, state: Mapping[str, torch.Tensor]):
+        super().__init__()
+        self.cfg = cfg
+        self.ln, self.mamba = _group(state, "ln"), _group(state, "mamba")
+
+    def forward(self, x, state: Optional[dict] = None):
+        out, new_state = mamba2_block(self.cfg, self.mamba, apply_norm(self.cfg, self.ln, x), state)
+        return x + out, new_state
+
+
 @dataclass
 class KVCache:
-    """Keys and values of every layer, (L, B, T, Hkv, hd) in the compute
-    dtype, and the number of positions written (a Python int: the JAX
-    package keeps one int32 per layer, all equal)."""
+    """Keys and values of every attention layer, (L, B, T, Hkv, hd) in the
+    compute dtype, and the number of positions written (a Python int: the
+    JAX package keeps one int32 per layer, all equal)."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -148,6 +179,19 @@ class RWKVState:
     shift_tm: torch.Tensor
     shift_cm: torch.Tensor
     s: torch.Tensor
+
+
+@dataclass
+class HybridCache:
+    """The hybrid's cache: every Mamba2 layer's state ``h`` (L, B, H, N, P)
+    f32 and convolution state ``conv`` (L, B, 3, d_in + 2N) in the compute
+    dtype, and the shared attention's keys and values, one slot per group
+    of ``shared_attn_period`` layers (the JAX package's ``(mamba, attn)``
+    pair)."""
+
+    h: torch.Tensor
+    conv: torch.Tensor
+    attn: KVCache
 
 
 class LM(nn.Module):
@@ -166,13 +210,18 @@ class LM(nn.Module):
         self.cfg = cfg
         self.embed = _param(state["embed"])
         self.unembed = None if cfg.tie_embeddings else _param(state["unembed"])
+        self.frontend_proj = _param(state["frontend_proj"]) if cfg.frontend != "none" else None
         self.final_norm = _group(state, "final_norm")
-        block = RWKV6Block if cfg.family == "ssm" else DenseBlock
+        block = {"ssm": RWKV6Block, "hybrid": Mamba2Block}.get(cfg.family, DenseBlock)
         self.blocks = nn.ModuleList(
             block(cfg, {k[len(f"blocks.{i}."):]: v for k, v in state.items()
                         if k.startswith(f"blocks.{i}.")})
             for i in range(cfg.n_layers)
         )
+        self.shared_attn = None
+        if cfg.family == "hybrid":
+            self.shared_attn = DenseBlock(cfg, {k[len("shared_attn."):]: v for k, v in state.items()
+                                                if k.startswith("shared_attn.")})
 
     @property
     def device(self) -> torch.device:
@@ -184,19 +233,30 @@ class LM(nn.Module):
     # ------------------------------------------------------------------ #
     # Embedding / head
     # ------------------------------------------------------------------ #
-    def _embed(self, tokens):
+    def _embed(self, tokens, frontend_embeds=None):
+        """The token rows in the compute dtype; where the config has a
+        frontend and ``frontend_embeds`` (B, F, frontend_dim) are given, the
+        first F positions are their projection instead."""
+        cdt = _dtype(self.cfg.compute_dtype)
         # gather the rows first, then cast: the JAX package casts the whole
         # table before its gather, which gives the same values
-        return self.embed[tokens].to(_dtype(self.cfg.compute_dtype))
+        h = self.embed[tokens].to(cdt)
+        if self.frontend_proj is not None and frontend_embeds is not None:
+            proj = frontend_embeds.to(cdt) @ self.frontend_proj.to(cdt)
+            h[:, :proj.shape[1]] = proj
+        return h
 
     def _head(self, h):
         w = self.embed.T if self.cfg.tie_embeddings else self.unembed
         return h.float() @ w.float()  # f32 logits
 
     def _run_blocks(self, h, positions, cache=None):
-        """Runs every layer; updates ``cache`` in place where one is given."""
+        """Runs every layer; updates ``cache`` in place where one is given.
+        Returns (h, the aux loss: the MoE layers' mean, else 0)."""
+        cfg = self.cfg
+        auxs = []
         for i, block in enumerate(self.blocks):
-            if self.cfg.family == "ssm":
+            if cfg.family == "ssm":
                 st = None if cache is None else {"shift_tm": cache.shift_tm[i],
                                                  "shift_cm": cache.shift_cm[i], "s": cache.s[i]}
                 h, new = block(h, st)
@@ -204,21 +264,53 @@ class LM(nn.Module):
                     cache.shift_tm[i].copy_(new["shift_tm"])
                     cache.shift_cm[i].copy_(new["shift_cm"])
                     cache.s[i].copy_(new["s"])
+            elif cfg.family == "hybrid":
+                st = None if cache is None else {"h": cache.h[i], "conv": cache.conv[i]}
+                h, new = block(h, st)
+                if cache is not None:
+                    cache.h[i].copy_(new["h"])
+                    cache.conv[i].copy_(new["conv"])
+                if (i + 1) % cfg.shared_attn_period == 0:
+                    g = i // cfg.shared_attn_period
+                    kv = None if cache is None else {"k": cache.attn.k[g], "v": cache.attn.v[g],
+                                                     "len": cache.attn.length}
+                    h, _, _ = self.shared_attn(h, positions, kv)
             else:
                 kv = None if cache is None else {"k": cache.k[i], "v": cache.v[i], "len": cache.length}
-                h, _ = block(h, positions, kv)
-        return h
+                h, aux, _ = block(h, positions, kv)
+                auxs.append(aux)
+        if cfg.moe is not None:
+            return h, torch.stack(auxs).mean()
+        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def _kv(self, cache) -> Optional[KVCache]:
+        """The attention cache inside ``cache``, None for the ssm family."""
+        if self.cfg.family == "ssm":
+            return None
+        return cache.attn if self.cfg.family == "hybrid" else cache
 
     # ------------------------------------------------------------------ #
     # Public API
     # ------------------------------------------------------------------ #
-    def forward(self, tokens):
-        """Train/prefill forward: tokens (B, S) -> logits (B, S, V) f32."""
+    def forward(self, tokens, frontend_embeds=None):
+        """Train/prefill forward: tokens (B, S) -> (logits (B, S, V) f32,
+        aux loss () f32)."""
         B, S = tokens.shape
-        h = self._embed(tokens)
+        h = self._embed(tokens, frontend_embeds)
         positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-        h = self._run_blocks(h, positions)
-        return self._head(apply_norm(self.cfg, self.final_norm, h))
+        h, aux = self._run_blocks(h, positions)
+        return self._head(apply_norm(self.cfg, self.final_norm, h)), aux
+
+    def loss(self, batch: Mapping[str, torch.Tensor]):
+        """(CE + 1e-4 z-loss + 1e-2 aux, {"ce", "aux", "zloss"}) of
+        ``batch`` = {"tokens", "labels"} (B, S), and "frontend_embeds" where
+        the config has a frontend.  Forward only: no gradients."""
+        logits, aux = self.forward(batch["tokens"], batch.get("frontend_embeds"))
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
+        ce = -(picked - lse).mean()
+        z = lse.square().mean()
+        return ce + 1e-4 * z + 1e-2 * aux, {"ce": ce, "aux": aux, "zloss": z}
 
     def init_cache(self, batch: int, max_len: int):
         cfg = self.cfg
@@ -231,31 +323,49 @@ class LM(nn.Module):
                 shift_cm=torch.zeros((L, batch, 1, d), dtype=cdt, device=dev),
                 s=torch.zeros((L, batch, d // K, K, K), dtype=torch.float32, device=dev),
             )
-        shape = (L, batch, max_len, cfg.n_kv_heads, cfg.hd)
-        return KVCache(torch.zeros(shape, dtype=cdt, device=dev), torch.zeros(shape, dtype=cdt, device=dev))
+        n_attn = L // cfg.shared_attn_period if cfg.family == "hybrid" else L
+        shape = (n_attn, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        kv = KVCache(torch.zeros(shape, dtype=cdt, device=dev), torch.zeros(shape, dtype=cdt, device=dev))
+        if cfg.family != "hybrid":
+            return kv
+        d_in, N, P = 2 * cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim
+        return HybridCache(
+            h=torch.zeros((L, batch, d_in // P, N, P), dtype=torch.float32, device=dev),
+            conv=torch.zeros((L, batch, CONV_WIDTH - 1, d_in + 2 * N), dtype=cdt, device=dev),
+            attn=kv,
+        )
 
     def decode_step(self, cache, tokens):
         """tokens (B, S) -> (logits (B, S, V) f32, cache), the cache updated
-        in place.  Every token of the call gets the position ``cache.length``,
-        as the JAX ``decode_step`` gives them (its positions are (B, 1)): a
-        prefill of S tokens through here applies RoPE at position 0 to all
-        of them, where ``forward`` gives positions 0 .. S - 1."""
+        in place.  Every token of the call gets the position of the
+        attention cache's length, as the JAX ``decode_step`` gives them (its
+        positions are (B, 1)): a prefill of S tokens through here applies
+        RoPE at position 0 to all of them, where ``forward`` gives positions
+        0 .. S - 1."""
         B, S = tokens.shape
         h = self._embed(tokens)
-        positions = None
-        if self.cfg.family != "ssm":
-            positions = torch.full((B, 1), cache.length, device=tokens.device)
-        h = self._run_blocks(h, positions, cache)
-        if self.cfg.family != "ssm":
-            cache.length += S
+        kv = self._kv(cache)
+        positions = None if kv is None else torch.full((B, 1), kv.length, device=tokens.device)
+        h, _ = self._run_blocks(h, positions, cache)
+        if kv is not None:
+            kv.length += S
         return self._head(apply_norm(self.cfg, self.final_norm, h)), cache
 
 
-def build_model(cfg: ArchConfig, device=None, seed: int = 0) -> LM:
+def build_model(cfg: ArchConfig, device=None, seed: int = 0, init_depth: Optional[int] = None) -> LM:
     """The model of ``cfg`` with parameters drawn by
     :func:`~.params.init_params` on ``device`` (default ``"cuda"``) from a
-    generator there seeded with ``seed``."""
+    generator there seeded with ``seed``.
+
+    ``init_depth`` (default ``cfg.n_layers``) is the depth whose std the
+    stacked block weights take, ``scale / sqrt(init_depth)``: a config cut
+    to fewer layers passes its published depth, and each layer it keeps is
+    then drawn as the published model's (the same numbers from the seed,
+    scaled by ``sqrt(n_layers / init_depth)``)."""
     dev = resolve_device(device)
-    tree = init_params(blueprint(cfg), torch.Generator(device=dev).manual_seed(seed), dev,
-                       _dtype(cfg.param_dtype))
+    bp = blueprint(cfg)
+    if init_depth is not None:
+        factor = math.sqrt(cfg.n_layers / init_depth)
+        bp["blocks"] = tree_map(lambda d: dataclasses.replace(d, scale=d.scale * factor), bp["blocks"])
+    tree = init_params(bp, torch.Generator(device=dev).manual_seed(seed), dev, _dtype(cfg.param_dtype))
     return LM(cfg, unstack(cfg, tree))

@@ -26,6 +26,7 @@ from repro_torch.kernels.stencil25.kernel import blocks_per_sm
 from repro_torch.kernels.wkv import wkv, wkv_cuda, wkv_plain
 from repro_torch.kernels.wkv.kernel import CHUNKS
 from repro_torch.kernels.wkv.kernel import HEAD_DIMS as WKV_HEAD_DIMS
+from repro_torch.launch.one_card import attention_layers
 from repro_torch.models.layers import attention as model_attention
 from repro_torch.models.registry import build_model
 from repro_torch.models.rwkv6 import wkv_heads
@@ -241,18 +242,22 @@ def test_model_prefill_kernels_match_plain_when_padded(cuda):
     assert _close(state.reshape(8, 64, 64), plain_state, 5e-4, 5e-4)
 
 
-def test_smoke_config_serves_the_same_greedy_tokens_on_the_card_and_the_cpu(cuda):
-    """Qwen2.5-14B's smoke config (head dim 16, f32): the same parameters,
-    drawn on the CPU and copied to the card, and the same prompts; the
-    card's prefill runs the flash kernel once per layer, its decode never."""
-    cfg = get_arch("qwen2.5-14b").smoke()
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "musicgen-large", "llava-next-34b", "dbrx-132b", "zamba2-7b"])
+def test_smoke_config_serves_the_same_greedy_tokens_on_the_card_and_the_cpu(cuda, arch):
+    """One smoke config per family with attention (head dim 16, f32): the
+    same parameters, drawn on the CPU and copied to the card, and the same
+    prompts; the card's prefill runs the flash kernel once per attention
+    layer (the hybrid's: once per group of ``shared_attn_period``), its
+    decode never."""
+    cfg = get_arch(arch).smoke()
+    attn_layers = attention_layers(cfg)
     prompts = np.random.default_rng(11).integers(0, cfg.vocab, size=(3, 40)).astype(np.int32)
     ref = ServeEngine(build_model(cfg, device="cpu", seed=0), max_len=64).generate(prompts, n_steps=8)
     engine = ServeEngine(build_model(cfg, device="cpu", seed=0).to(cuda), max_len=64)
     n = flash_attention_cuda.launches
     tok, cache = engine.prefill(prompts)
-    assert flash_attention_cuda.launches == n + cfg.n_layers
+    assert flash_attention_cuda.launches == n + attn_layers
     rest = engine.decode(tok, cache, 7)
-    assert flash_attention_cuda.launches == n + cfg.n_layers
+    assert flash_attention_cuda.launches == n + attn_layers
     out = torch.cat([tok, rest], dim=1).to(torch.int32).cpu().numpy()
     np.testing.assert_array_equal(out, ref)

@@ -1,24 +1,31 @@
 """The port's model stack (``repro_torch.configs``, ``repro_torch.models``)
-against the JAX package, on the CPU.
+against the JAX package, on the CPU, for all ten configs of the registry.
 
 Each case builds the JAX parameter tree from ``PRNGKey(0)`` on a ``smoke()``
 config, carries it across with ``convert.lm_params``, and feeds the same
 tokens, made with numpy from a seed, through both packages.  The port's
 attention runs through the flash-attention entry point and its RWKV
 recurrence through the WKV entry point, which on CPU tensors run their plain
-versions; S = 8 exercises the zero padding of both (to 32 and to 16).
+versions; S = 8 exercises the zero padding of both (to 32 and to 16).  The
+hybrid's Mamba2 scan runs one chunk of S at S = 8 and 40 (``min(64, S)``),
+and the one-step recurrence in decode.
 
 Tolerance, as ``|a - b| <= atol + rtol |b|`` in f32 (the smoke configs
-compute in f32): atol = rtol = 1e-4 for the logits of the two packages.  The
-two packages sum in other orders (XLA's and PyTorch's CPU products, the
+compute in f32): atol = rtol = 1e-4 for the logits and the MoE's aux loss
+of the two packages; 1e-5 for the loss terms, means over every position.
+The two packages sum in other orders (XLA's and PyTorch's CPU products, the
 JAX stepwise WKV scan against the port's loop), and the smoke weights are
 large (std 1/sqrt(2) for every stacked weight, by the fan-in rule below), so
 the logits differ by a few 1e-6 of their size.  The caches after a prefill:
 keys and values 1e-4 too; RWKV's token-shift rows and WKV states 5e-4, the
 WKV tolerance of ``tests/test_kernels.py`` (a state entry is a sum of up to
-S decayed k v products, some cancelling near zero).  The port's decode chain
+S decayed k v products, some cancelling near zero), and the same 5e-4 for
+the Mamba2 state ``h``, a decayed sum of the same kind.  The port's decode chain
 against its own ``forward``: 2e-3, the JAX test's
-(``tests/test_models.py::test_decode_matches_forward``).
+(``tests/test_models.py::test_decode_matches_forward``), with the MoE
+configs made dropless as that test makes them: a capacity drop depends on
+the other tokens of the call, so a chain of single tokens and a forward
+drop different ones.
 """
 from __future__ import annotations
 
@@ -42,20 +49,29 @@ from repro_torch.kernels.attention import flash_attention_cuda
 from repro_torch.kernels.wkv import wkv_cuda
 from repro_torch.models import LM, build_model, init_params, param_count
 from repro_torch.models.params import ParamDef, leaves
-from repro_torch.models.registry import blueprint, unstack
+from repro_torch.models.registry import HybridCache, KVCache, blueprint, unstack
 
-PORTED = ["olmo-1b", "qwen2.5-14b", "stablelm-12b", "internlm2-20b", "rwkv6-1.6b"]
-UNPORTED = [a for a in ARCH_IDS if a not in PORTED]
+PORTED = list(ARCH_IDS)
+FRONTEND = ["musicgen-large", "llava-next-34b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 WKV_TOL = dict(rtol=5e-4, atol=5e-4)
 
 
+def dropless(cfg):
+    """``cfg`` with capacity factor E where it routes: no token is dropped."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+
+
 @functools.cache
-def pair(arch: str):
+def pair(arch: str, no_drops: bool = False):
     """(JAX model, JAX params, port LM) on the smoke config, same weights."""
-    jm = jax_build_model(jax_get_arch(arch).smoke())
+    jcfg, cfg = jax_get_arch(arch).smoke(), get_arch(arch).smoke()
+    if no_drops:
+        jcfg, cfg = dropless(jcfg), dropless(cfg)
+    jm = jax_build_model(jcfg)
     params = jax_init_params(jm.blueprint(), jax.random.PRNGKey(0))
-    cfg = get_arch(arch).smoke()
     lm = LM(cfg, convert.lm_params(cfg, jax.tree.map(np.asarray, params), device="cpu"))
     return jm, params, lm
 
@@ -72,22 +88,25 @@ def port(t: np.ndarray) -> torch.Tensor:
 def test_forward_matches_jax(arch):
     jm, params, lm = pair(arch)
     tok = tokens(1, 2, 64, lm.cfg.vocab)
-    ref, _ = jm.forward(params, jnp.asarray(tok))
+    ref, ref_aux = jm.forward(params, jnp.asarray(tok))
     with torch.no_grad():
-        out = lm(port(tok))
+        out, aux = lm(port(tok))
     assert out.dtype == torch.float32 and out.shape == (2, 64, lm.cfg.vocab)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    np.testing.assert_allclose(aux.numpy(), np.asarray(ref_aux), **TOL)
+    assert (float(aux) > 0) == (lm.cfg.moe is not None)
 
 
 @pytest.mark.parametrize("arch", PORTED)
 def test_decode_chain_matches_jax_and_forward(arch):
-    jm, params, lm = pair(arch)
+    jm, params, lm = pair(arch, no_drops=True)
     B, S = 2, 8
     tok = tokens(2, B, S, lm.cfg.vocab)
     jcache = jm.init_cache(B, 16)
     cache = lm.init_cache(B, 16)
     with torch.no_grad():
-        full = lm(port(tok))
+        full, _ = lm(port(tok))
         for t in range(S):
             jlg, jcache = jm.decode_step(params, jcache, jnp.asarray(tok[:, t:t + 1]))
             lg, cache = lm.decode_step(cache, port(tok[:, t:t + 1]))
@@ -95,15 +114,30 @@ def test_decode_chain_matches_jax_and_forward(arch):
     np.testing.assert_allclose(lg[:, 0].numpy(), full[:, -1].numpy(), rtol=2e-3, atol=2e-3)
 
 
-def _cache_arrays(cache) -> list[np.ndarray]:
-    if hasattr(cache, "k"):
-        return [cache.k.numpy(), cache.v.numpy()]
-    return [cache.shift_tm.numpy(), cache.shift_cm.numpy(), cache.s.numpy()]
+def _cache_arrays(cache) -> list[tuple[np.ndarray, dict]]:
+    """The port's cache as (array, tolerance) pairs, in the order of
+    :func:`_jax_cache_arrays`."""
+    if isinstance(cache, KVCache):
+        return [(cache.k.numpy(), TOL), (cache.v.numpy(), TOL)]
+    if isinstance(cache, HybridCache):
+        return [(cache.h.numpy(), WKV_TOL), (cache.conv.numpy(), TOL),
+                (cache.attn.k.numpy(), TOL), (cache.attn.v.numpy(), TOL)]
+    return [(a.numpy(), WKV_TOL) for a in (cache.shift_tm, cache.shift_cm, cache.s)]
 
 
 def _jax_cache_arrays(cache) -> list[np.ndarray]:
+    if isinstance(cache, tuple):  # the hybrid's (mamba, attn)
+        mamba, attn = cache
+        return [np.asarray(a) for a in (mamba["h"], mamba["conv"], attn["k"], attn["v"])]
     keys = ("k", "v") if "k" in cache else ("shift_tm", "shift_cm", "s")
     return [np.asarray(cache[k]) for k in keys]
+
+
+def _kv_length(cache):
+    """(the port's attention length, the JAX one's), or None without one."""
+    if isinstance(cache, HybridCache):
+        return cache.attn.length
+    return cache.length if isinstance(cache, KVCache) else None
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -112,7 +146,8 @@ def test_prefill_then_decode_matches_jax(arch, s):
     """A prefill of S tokens through ``decode_step`` on a zeroed cache (the
     serving engine's), then one decode step: logits at every position and the
     cache after each, against the JAX package.  S = 8 pads to 32 for
-    attention and to 16 for the WKV; S = 40 to 64 and 48."""
+    attention and to 16 for the WKV; S = 40 to 64 and 48, and the hybrid's
+    scan runs one chunk of 40."""
     jm, params, lm = pair(arch)
     B = 3
     tok = tokens(3, B, s + 1, lm.cfg.vocab)
@@ -122,10 +157,13 @@ def test_prefill_then_decode_matches_jax(arch, s):
             jlg, jcache = jm.decode_step(params, jcache, jnp.asarray(tok[:, part]))
             lg, cache = lm.decode_step(cache, port(tok[:, part]))
             np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), **TOL)
-            for a, b in zip(_cache_arrays(cache), _jax_cache_arrays(jcache)):
-                np.testing.assert_allclose(a, b, **(WKV_TOL if lm.cfg.family == "ssm" else TOL))
-    if hasattr(cache, "length"):
-        assert cache.length == s + 1 == int(jcache["len"][0])
+            mine, ref = _cache_arrays(cache), _jax_cache_arrays(jcache)
+            assert len(mine) == len(ref)
+            for (a, tol), b in zip(mine, ref):
+                np.testing.assert_allclose(a, b, **tol)
+    if _kv_length(cache) is not None:
+        jattn = jcache[1] if isinstance(jcache, tuple) else jcache
+        assert _kv_length(cache) == s + 1 == int(jattn["len"][0])
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -151,12 +189,75 @@ def test_arch_ids_and_shapes_equal_jax():
         {k: dataclasses.asdict(v) for k, v in JAX_SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = get_arch(arch).smoke()
-    for call in (lambda: blueprint(cfg), lambda: build_model(cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 3[abc]\b"):
-            call()
+def _batch(cfg, seed: int, frontend: bool) -> dict[str, np.ndarray]:
+    """tokens and labels (2, 40), and normal frontend embeddings where asked."""
+    tok = tokens(seed, 2, 41, cfg.vocab)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    if frontend:
+        rng = np.random.default_rng(seed + 1)
+        batch["frontend_embeds"] = rng.normal(size=(2, cfg.n_frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_loss_matches_jax(arch):
+    """CE, z-loss, aux and their total against ``LM.loss``, with normal
+    frontend embeddings for the audio and vision configs."""
+    jm, params, lm = pair(arch)
+    batch = _batch(lm.cfg, 5, arch in FRONTEND)
+    ref_total, ref = jm.loss(params, {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        total, metrics = lm.loss({k: torch.from_numpy(v) for k, v in batch.items()})
+    assert set(metrics) == set(ref) == {"ce", "aux", "zloss"}
+    for name in metrics:
+        np.testing.assert_allclose(metrics[name].numpy(), np.asarray(ref[name]), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(total.numpy(), np.asarray(ref_total), rtol=1e-5, atol=1e-5)
+    assert abs(float(metrics["ce"]) - np.log(lm.cfg.vocab)) < 1.5  # near ln V at random init
+
+
+@pytest.mark.parametrize("arch", FRONTEND)
+def test_frontend_forward_matches_jax(arch, monkeypatch):
+    """``forward(tokens, frontend_embeds)``: the projected embeddings over
+    the first ``n_frontend_tokens`` positions, against the JAX package.
+
+    The embedding step is held at 1e-6 on normal embeddings.  The logits
+    are held by ``TOL`` against the JAX package at embeddings of ones, its
+    own input in ``tests/test_models.py``, and on normal embeddings, where
+    each projected row differs, against a float64 evaluation of the same
+    model: there the two f32 packages sum in other orders and each is its
+    own distance from the exact logits (the JAX package about 0.3 of
+    ``TOL`` on musicgen's smoke config)."""
+    jm, params, lm = pair(arch)
+    cfg = lm.cfg
+    tok = tokens(6, 2, 24, cfg.vocab)
+    normal = _batch(cfg, 7, True)["frontend_embeds"]
+    ref = jm._embed(params, jnp.asarray(tok), jnp.asarray(normal))
+    with torch.no_grad():
+        h = lm._embed(port(tok), torch.from_numpy(normal))
+    np.testing.assert_allclose(h.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+    rows, n = lm.embed[port(tok)].numpy(), cfg.n_frontend_tokens
+    assert not np.allclose(h.numpy()[:, :n], rows[:, :n])
+    np.testing.assert_array_equal(h.numpy()[:, n:], rows[:, n:])
+    ones = np.ones((2, cfg.n_frontend_tokens, cfg.frontend_dim), np.float32)
+    ref, _ = jm.forward(params, jnp.asarray(tok), jnp.asarray(ones))
+    with torch.no_grad():
+        out, _ = lm(port(tok), torch.from_numpy(ones))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    with torch.no_grad():
+        out, _ = lm(port(tok), torch.from_numpy(normal))
+    exact = _forward_f64(lm, tok, normal, monkeypatch)
+    np.testing.assert_allclose(out.numpy(), exact, **TOL)
+
+
+def _forward_f64(lm, tok, embeds, monkeypatch) -> np.ndarray:
+    """The logits of ``lm``'s model evaluated in float64: the same weights
+    widened, and every ``.float()`` of the forward made a ``.double()``."""
+    lm64 = LM(lm.cfg, {k: v.double() for k, v in lm.state_dict().items()})
+    with monkeypatch.context() as m, torch.no_grad():
+        m.setattr(torch.Tensor, "float", torch.Tensor.double)
+        out, _ = lm64(port(tok), torch.from_numpy(embeds).double())
+    assert out.dtype == torch.float64
+    return out.numpy()
 
 
 def _jax_flat(tree, prefix=""):
@@ -212,6 +313,36 @@ def test_init_params_std_per_leaf_matches_materialize(arch):
         se = 6 * d.std / np.sqrt(2 * t.numel())
         assert abs(float(t.std()) - d.std) <= se, name
         assert abs(float(np.asarray(jtree[name]).std()) - d.std) <= se, name
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "dbrx-132b", "zamba2-7b"])
+def test_build_model_draws_stacked_weights_at_init_depth(arch):
+    """``init_depth``: every drawn stacked block weight is the same draw
+    scaled by ``sqrt(n_layers / init_depth)``, its std ``scale /
+    sqrt(init_depth)``; the zeros and ones and the unstacked leaves
+    (embeddings, the hybrid's shared block) are unchanged, and ``init_depth = n_layers`` changes nothing."""
+    cfg = get_arch(arch).smoke()
+    base = dict(build_model(cfg, device="cpu", seed=0).state_dict())
+    same = dict(build_model(cfg, device="cpu", seed=0, init_depth=cfg.n_layers).state_dict())
+    deep = dict(build_model(cfg, device="cpu", seed=0, init_depth=4 * cfg.n_layers).state_dict())
+    assert all(torch.equal(same[k], base[k]) for k in base)
+    bp = _jax_flat(blueprint(cfg))
+    stacked = [k for k in base if k.startswith("blocks.") and bp[_leaf(k)].init not in ("zeros", "ones")]
+    assert stacked and len(stacked) < len(base)
+    for k, v in base.items():
+        if k in stacked:
+            torch.testing.assert_close(deep[k], v * 0.5, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(deep[k], v), k
+    wide = next(k for k in stacked if base[k].numel() >= 512 and bp[_leaf(k)].init == "normal")
+    want = bp[_leaf(wide)].scale / np.sqrt(4 * cfg.n_layers)
+    assert float(deep[wide].std()) == pytest.approx(want, rel=0.15)
+
+
+def _leaf(state_key: str) -> str:
+    """``blocks.<i>.a.b`` -> the blueprint's ``blocks.a.b``."""
+    head, _, rest = state_key.split(".", 2)
+    return f"{head}.{rest}"
 
 
 def test_init_params_is_seeded():

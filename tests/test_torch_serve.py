@@ -3,13 +3,15 @@
 
 The JAX ``ServeEngine`` and the port's run the same prompts, made with numpy
 from a seed, over the same parameters (the JAX tree from ``PRNGKey(0)``
-carried across with ``convert.lm_params``) on the ``smoke()`` configs.
+carried across with ``convert.lm_params``) on the ``smoke()`` configs of all ten architectures;
+neither engine passes frontend embeddings.
 Greedy tokens must be equal.  Sampling at ``temperature > 0`` draws from a
 ``torch.Generator`` and cannot match ``jax.random``; it is checked to be
 seeded and to stay in the vocabulary.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -26,13 +28,14 @@ from repro.models import build_model as jax_build_model
 from repro.models import init_params as jax_init_params
 from repro.serve.engine import ServeEngine as JaxServeEngine
 from repro_torch import convert
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCH_IDS, get_arch
+from repro_torch.launch.one_card import ONE_CARD_LAYERS, attention_layers, one_card_config
 from repro_torch.launch.serve import serve
 from repro_torch.models import LM
 from repro_torch.serve.engine import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
-PORTED = ["olmo-1b", "qwen2.5-14b", "stablelm-12b", "internlm2-20b", "rwkv6-1.6b"]
+PORTED = list(ARCH_IDS)
 
 
 def engines(arch: str, max_len: int):
@@ -71,7 +74,8 @@ def test_sampling_is_seeded_and_in_vocab():
     np.testing.assert_array_equal(a[:, 0], engine.generate(p, n_steps=1)[:, 0])
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-14b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "rwkv6-1.6b", "musicgen-large", "llava-next-34b",
+                                  "dbrx-132b", "zamba2-7b"])
 def test_launch_serve_reports_on_cpu(arch):
     res = serve(arch, smoke=True, requests=2, prompt_len=12, steps=5, device="cpu")
     assert res["tokens"].shape == (2, 5) and res["tokens"].dtype == np.int32
@@ -80,6 +84,51 @@ def test_launch_serve_reports_on_cpu(arch):
                                "decode": {"flash_attention": 0, "wkv": 0}}
     assert res["prefill_ms"] > 0 and res["decode_ms_per_step"] > 0 and res["tokens_per_s"] > 0
     assert res["n_layers"] == 2 and res["params"] > 0
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "dbrx-132b", "zamba2-7b"])
+def test_launch_serve_takes_a_config(arch):
+    """A config in place of a name: the name's smoke config gives the same
+    tokens, and one of another depth serves at that depth."""
+    cfg = get_arch(arch).smoke()
+    by_name = serve(arch, smoke=True, requests=2, prompt_len=8, steps=4, device="cpu")
+    by_config = serve(cfg, requests=2, prompt_len=8, steps=4, device="cpu")
+    np.testing.assert_array_equal(by_config["tokens"], by_name["tokens"])
+    assert by_config["arch"] == by_name["arch"] == cfg.name
+    period = cfg.shared_attn_period or 1
+    cut = serve(dataclasses.replace(cfg, n_layers=2 * cfg.n_layers), requests=2, prompt_len=8, steps=4,
+                device="cpu")
+    assert cut["n_layers"] == 2 * cfg.n_layers and cut["n_layers"] % period == 0
+    assert cut["params"] > by_name["params"]
+
+
+ONE_CARD_ATTENTION = {"qwen2.5-14b": 48, "rwkv6-1.6b": 0, "stablelm-12b": 40, "musicgen-large": 48,
+                      "llava-next-34b": 24, "dbrx-132b": 4, "zamba2-7b": 3}
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_one_card_config_cuts_depth_only(arch):
+    """The one-card config keeps every published width; where the depth is
+    cut, the kept layers' f32 parameters leave a card of 80 GB 20 GB for
+    activations and the per-use bf16 weight casts, and the cut is named."""
+    cfg, reduced = one_card_config(arch)
+    published = get_arch(arch)
+    assert dataclasses.replace(cfg, n_layers=published.n_layers) == published
+    if arch in ONE_CARD_LAYERS:
+        assert reduced == {"n_layers": [ONE_CARD_LAYERS[arch], published.n_layers]}
+        assert cfg.n_layers == ONE_CARD_LAYERS[arch] < published.n_layers
+        assert cfg.n_params() * 4 <= 60e9 < published.n_params() * 4
+    else:
+        assert reduced == {} and cfg == published
+    if arch in ONE_CARD_ATTENTION:
+        assert attention_layers(cfg) == ONE_CARD_ATTENTION[arch]
+
+
+def test_launch_serve_init_depth_at_the_configs_own_depth_changes_nothing():
+    cfg = get_arch("dbrx-132b").smoke()
+    a = serve(cfg, requests=2, prompt_len=8, steps=4, device="cpu")
+    b = serve(cfg, requests=2, prompt_len=8, steps=4, device="cpu", init_depth=cfg.n_layers)
+    np.testing.assert_array_equal(a["tokens"], b["tokens"])
 
 
 def test_launch_serve_is_deterministic():
