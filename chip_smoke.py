@@ -9,17 +9,18 @@ chosen hand-written CUDA kernel runs; and every configuration it ranks,
 timed, to check its ranking.  Beside it, GQA flash attention at
 Qwen2.5-14B's width and the chunked RWKV6 WKV at RWKV6-1.6B's width, each
 with the tile or chunk fixed by measurement, and one model of every family
-served at full width.  Phases, one JSON line each:
+served at full width, and OLMo-1B trained at full width.  Phases, one JSON
+line each:
 
 1. device  — the card, its count, and ``nvidia-smi``'s name and power limit;
-2. build   — the four kernels built from ``src/repro_torch/csrc`` (one
+2. build   — the five kernels built from ``src/repro_torch/csrc`` (one
    ``nvcc`` each, and one for each of the stencil probe's three variants,
    all started together), with build seconds, registers and spills per
    thread of every instantiation (the staged and the direct stencil kernel
    each; beside the IR's assumption for the two paper kernels) and the
    count of tensor-core ``HMMA`` instructions in each kernel's SASS
-   (``cuobjdump -sass``); a bf16 flash instantiation without one fails the
-   run;
+   (``cuobjdump -sass``); a bf16 flash instantiation without one, forward
+   or backward, fails the run;
 3. check   — every kernel against its plain PyTorch version at small sizes:
    all 162 stencil configurations in f64 and a few in f32/bf16 on both
    stencil kernels (staged and direct), all 49 LBM configurations in f64
@@ -33,9 +34,17 @@ served at full width.  Phases, one JSON line each:
    Every compiled WKV (chunk, K) again with a bonus per head and a random
    initial state (the models' form), and the model's own kernel calls at
    S = 100 (padded to 128 for attention, 112 for WKV) against the plain
-   versions on the unpadded inputs.  Limits: max abs error f64 1e-10, f32
+   versions on the unpadded inputs.  The flash backward kernel at every
+   compiled head dim, f32 and bf16, four head groupings, causal and not, at
+   S = 256 and 96, and in bf16 at Qwen2.5-14B's group, (1, 40, 8, 2048,
+   128), and OLMo-1B's shape, (1, 16, 16, 4096, 128), against autograd
+   through the plain version, with the plain version's own f32 reading
+   against its f64 one and the backward's time against its bound and SDPA's
+   backward.  Limits: max abs error f64 1e-10, f32
    3e-5, bf16 4e-2, and elementwise ``|a - b| <= atol + rtol |b|`` for bf16
-   attention (``ATTN_RULE``) and WKV (``WKV_RULE``);
+   attention (``ATTN_RULE``) and WKV (``WKV_RULE``), and
+   ``|a - b| <= atol rms(b) + rtol |b|`` for the attention gradients
+   (``ATTN_GRAD_RULE``; ``F32_GRAD_RULE`` in f32);
 4. main    — ``stencil25(src)`` at (512, 512, 640) f64 and ``lbm_step`` at
    (256, 256, 512) f64, each with ``block=None``; then ``flash_attention``
    at (B, Hq, Hkv, S, D) = (1, 40, 8, 4096, 128) bf16 causal and ``wkv`` at
@@ -83,7 +92,22 @@ served at full width.  Phases, one JSON line each:
    ``WKV_SCALED_RULE`` (see there), with ``WKV_RULE``'s reading and the f32
    plain version's reading against an f64 one beside it.  Prefill and
    decode times (CUDA events), tokens per second, peak memory and the
-   decode step against its weight-bytes bound.
+   decode step against its weight-bytes bound;
+8. train   — ``train_olmo``: ``Trainer.fit`` on OLMo-1B at full width and
+   depth (16 layers, d 2048, f32 parameters and AdamW moments, bf16
+   compute, remat) at ``train_4k``'s sequence of 4096 and a global batch of
+   4 of its 256 (``launch.one_card``), 6 steps from seed 0, a checkpoint
+   every 3 (keep 1) into a directory under ``build/`` that the phase
+   removes, and one fault injected at step 4.  Fails unless every loss and
+   gradient norm is finite, step 3 re-runs after the restore with its
+   first run's loss within 1e-4 relative, and every step launches the
+   flash forward twice a layer (once in the forward, once in remat's
+   recompute) and its backward once a layer.  One layer's (q, k, v, dO),
+   captured in the first step, is held, backward kernel against autograd
+   through the plain version, by ``ATTN_GRAD_RULE``, and timed with the
+   forward, the plain version's backward and SDPA's.  Prints the warm
+   median step, tokens per second, peak memory, the disk's free space and
+   the checkpoint's snapshot, write and restore seconds.
 
 Then the ``nvidia-smi`` line, a ``kernels`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line, on
@@ -96,9 +120,11 @@ import itertools
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -122,9 +148,13 @@ from repro_torch.kernels.wkv import kernel as wkv_kernel  # noqa: E402
 from repro_torch.core.machine import H100_SXM  # noqa: E402
 from repro_torch.core.waves import wave_size  # noqa: E402
 from repro_torch.kernels.stencil25.ref import star_offsets, star_weights_np  # noqa: E402
-from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs import SHAPES, get_arch  # noqa: E402
 from repro_torch.launch import one_card  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.data import SyntheticTokenDataset  # noqa: E402
+from repro_torch.optim import make_optimizer  # noqa: E402
+from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.train import trainer as train_trainer  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
 from repro_torch.models import rwkv6 as model_rwkv6  # noqa: E402
@@ -156,6 +186,26 @@ WKV_CHECK_SHAPES = ((3, 128), (5, 1024))  # (BH, S)
 # WKV: the JAX test's rtol = atol = 5e-4.
 ATTN_RULE = (2e-3, 1e-2)
 WKV_RULE = (5e-4, 5e-4)
+# Attention's gradients, dq, dk and dv, against autograd through the plain
+# version: |a - b| <= atol rms(b) + rtol |b|.  rtol 1e-2 admits one bf16
+# ulp (at most 2^-7 |b|) between two results each rounded to bf16 once;
+# atol is in units of the gradient's scale, since a gradient entry is a sum
+# over the keys or queries that cancels near zero.  Calibrated on the plain
+# version's own f32 gradients against its f64 ones, which the check phase
+# reads by this rule (``plain_f32_vs_f64``).  F32_GRAD_RULE holds the f32
+# kernel the same way at the forward's f32 limit.
+ATTN_GRAD_RULE = (2e-3, 1e-2)
+F32_GRAD_RULE = (3e-5, 3e-5)
+ATTN_BWD_CHECK_SEQS = (256, 96)  # 96: a partial last tile of the backward's 64
+ATTN_BWD_GQA_SHAPES = ((1, 40, 8, 2048, 128), (1, 16, 16, 4096, 128))  # Qwen2.5-14B's group; OLMo-1B
+# train_olmo: the run, its fault and its one-card cut
+TRAIN_ARCH = "olmo-1b"
+TRAIN_SHAPE = "train_4k"
+TRAIN_STEPS = 6
+TRAIN_CKPT_EVERY = 3
+TRAIN_FAULT_STEP = 4
+TRAIN_RERUN_STEP = 3  # the checkpoint at 3 is restored and step 3 runs again
+TRAIN_RERUN_RTOL = 1e-4
 # The WKV rule in units of the data's scale: |a - b| <= atol rms(b) + rtol |b|,
 # for the inputs the full-width models feed the kernel.  There the outputs
 # are thousands (r, k, v about 9 from the reference's fan-in rule), and some
@@ -195,6 +245,9 @@ KERNELS = {  # name: (launch counter, CUDA source, TPU kernel it replaces)
                         "src/repro/kernels/attention/kernel.py:21"),
     "wkv": (wkv_kernel.wkv_cuda, "src/repro_torch/csrc/wkv.cu",
             "src/repro/kernels/wkv/kernel.py:25"),
+    # no TPU kernel: the JAX package differentiates its XLA reference attention
+    "flash_attention_bwd": (attn_kernel.flash_attention_bwd_cuda, "src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/layers.py:111"),
 }
 # launch counters of kernels that no main path may launch
 OFF_PATH = {"stencil25_direct": st_kernel.stencil25_direct_cuda}
@@ -314,6 +367,11 @@ def phase_build() -> dict:
             for bq, bkv in attn_kernel.TILES:  # raises where the source lacks a listed tile
                 regs[f"flash_attention {str(dtype)[6:]} d{d} {bq}x{bkv}"] = \
                     attn_kernel.kernel_attributes(dtype, d, bq, bkv)
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in attn_kernel.HEAD_DIMS:
+            for which in attn_kernel.BWD_KERNELS:
+                regs[f"flash_attention_bwd {which} {str(dtype)[6:]} d{d}"] = \
+                    attn_kernel.bwd_kernel_attributes(dtype, d, which)
     for chunk in wkv_kernel.CHUNKS:
         for kd in wkv_kernel.HEAD_DIMS:
             regs[f"wkv L{chunk} K{kd}"] = wkv_kernel.kernel_attributes(chunk, kd)
@@ -331,10 +389,13 @@ def phase_build() -> dict:
           "ir_regs_per_thread": {"stencil25": appspec.star3d_ir((32, 4, 8)).regs_per_thread,
                                  "lbm_d3q15": appspec.lbm_d3q15_ir((32, 4, 4)).regs_per_thread},
           "kernels": regs, "hmma": {n: sum(c.values()) for n, c in hmma.items()},
-          "hmma_flash_attention": hmma["flash_attention"]})
+          "hmma_flash_attention": hmma["flash_attention"], "hmma_flash_attention_bwd": hmma["flash_attention_bwd"]})
     missing = [f"flash_tc_kernel<{bq},{bkv},{d}>" for d in attn_kernel.HEAD_DIMS
                for bq, bkv in attn_kernel.TILES
                if not hmma["flash_attention"].get(f"flash_tc_kernel<{bq},{bkv},{d}>")]
+    missing += [f"{name}<{d}>" for d in attn_kernel.HEAD_DIMS
+                for name in ("flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel")
+                if not hmma["flash_attention_bwd"].get(f"{name}<{d}>")]
     if missing:
         fail(f"bf16 flash instantiations without tensor-core instructions: {missing}")
     return probe_libs
@@ -407,6 +468,7 @@ def phase_check() -> None:
         res[f"lbm_d3q15 {str(dtype)[6:]}"] = {"configs": len(cfgs), "max_abs_err": err,
                                               "tol": TOL[dtype]}
     res.update(check_attention(gen))
+    res.update(check_attention_bwd(gen))
     res.update(check_wkv(gen))
     res.update(check_wkv_heads(gen))
     res.update(check_model_padded(gen))
@@ -449,6 +511,106 @@ def check_attention(gen: torch.Generator) -> dict:
                 "tol": TOL[dtype]}
             if dtype == torch.bfloat16:
                 res[f"flash_attention {str(dtype)[6:]} d{d}"].update(max_ratio=ratio, rule=rule_text(ATTN_RULE))
+    return res
+
+
+def attention_grads(q, k, v, dout, causal: bool = True, tile=None) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) for ``dout``: through the flash kernel and its backward
+    kernel with ``tile``, or through the plain version where ``tile`` is
+    None; in the inputs' dtype."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        out = (attention.mha_plain(*leaves, causal) if tile is None
+               else attn_kernel.flash_attention_cuda(*leaves, causal, *tile))
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def grad_reading(got: tuple, want: tuple, rule: tuple[float, float]) -> dict:
+    """Gradients against others by ``rule`` in units of each one's scale
+    (``ATTN_GRAD_RULE``, ``F32_GRAD_RULE``)."""
+    return {"max_abs_err": max(max_err(a, b) for a, b in zip(got, want)),
+            "max_ratio": max(scaled_ratio(a, b, rule) for a, b in zip(got, want)),
+            "rule": f"|a-b| <= {rule[0]} rms(b) + {rule[1]}|b|"}
+
+
+def attention_bwd_bound(q: torch.Tensor, k: torch.Tensor, causal: bool = True) -> tuple[float, str]:
+    """``bound_ms`` of attention's backward: q, k, v, o, dO and the rows'
+    log-sum-exp read and dq, dk, dv written once; 10 D flops per unmasked
+    (query, key) pair (QK^T, dO V^T, dV, dQ, dK)."""
+    b, hq, seq, d = q.shape
+    n_bytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) + 4.0 * b * hq * seq
+    pairs = b * hq * seq * ((seq + 1) / 2 if causal else seq)
+    return bound_ms(n_bytes, 10.0 * d * pairs, q.dtype)
+
+
+def time_attention_bwd(q, k, v, dout, reps: int = REPS) -> dict:
+    """The backward kernel's time a launch at the shape of ``q, k, v``
+    (causal, bf16), its bound, and the backward of the plain version and of
+    SDPA (the yardstick, never called by the port), each with its graph
+    built once."""
+    b, hq, seq, d = q.shape
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        out = attn_kernel.flash_attention_cuda(*leaves, True, *attention.select_blocks(b, hq, k.shape[1], seq, d))
+    sq, sk, sv, so, lse, out_lo = out.grad_fn.saved_tensors
+    res = {"ms": time_ms(lambda: attn_kernel.flash_attention_bwd_cuda(sq, sk, sv, so, lse, dout, True, out_lo),
+                         reps=reps)}
+    res["bound_ms"], res["bound_by"] = attention_bwd_bound(q, k)
+    with torch.enable_grad():
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+    res["library_ms"] = time_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True), reps=reps)
+    del sdpa_out
+    with torch.enable_grad():
+        plain_out = attention.mha_plain(*leaves)
+    res["plain_ms"] = time_ms(lambda: torch.autograd.grad(plain_out, leaves, dout, retain_graph=True),
+                              reps=2, warmup=1)
+    return res
+
+
+def check_attention_bwd(gen: torch.Generator) -> dict:
+    """The backward kernel against autograd through ``mha_plain``: every
+    compiled head dim, f32 and bf16, at four head groupings, causal and not,
+    at each of ``ATTN_BWD_CHECK_SEQS``; then bf16 at ``ATTN_BWD_GQA_SHAPES``,
+    causal, with the plain version's own f32 gradients read against its f64
+    ones by the same rule, the backward's reading without the forward's
+    rounding error of its output (``without_out_lo``, D from the bf16
+    output alone; not a limit), and the times of ``time_attention_bwd``."""
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rule = ATTN_GRAD_RULE if dtype == torch.bfloat16 else F32_GRAD_RULE
+        for d in attn_kernel.HEAD_DIMS:
+            readings = []
+            for (hq, hkv), seq, causal in itertools.product(ATTN_CHECK_HEADS, ATTN_BWD_CHECK_SEQS, (True, False)):
+                q, k, v = (torch.randn((1, h, seq, d), generator=gen, device="cuda").to(dtype) for h in (hq, hkv, hkv))
+                dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+                tile = (64, 64) if seq % 64 == 0 else (32, 32)
+                readings.append(grad_reading(attention_grads(q, k, v, dout, causal, tile),
+                                             attention_grads(q, k, v, dout, causal), rule))
+            torch.cuda.synchronize()
+            res[f"flash_attention_bwd {str(dtype)[6:]} d{d}"] = {
+                "configs": len(readings), "max_abs_err": max(r["max_abs_err"] for r in readings),
+                "max_ratio": max(r["max_ratio"] for r in readings), "rule": readings[0]["rule"]}
+    for b, hq, hkv, seq, d in ATTN_BWD_GQA_SHAPES:
+        q, k, v = (torch.randn((b, h, seq, d), generator=gen, device="cuda").to(torch.bfloat16) for h in (hq, hkv, hkv))
+        dout = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        tile = attention.select_blocks(b, hq, hkv, seq, d)
+        want = attention_grads(q, k, v, dout)
+        reading = grad_reading(attention_grads(q, k, v, dout, True, tile), want, ATTN_GRAD_RULE)
+        # why the forward writes its output's rounding error: D from the bf16 output alone
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            out = attn_kernel.flash_attention_cuda(*leaves, True, *tile)
+        sq, sk, sv, so, lse, _ = out.grad_fn.saved_tensors
+        reading["without_out_lo"] = grad_reading(
+            attn_kernel.flash_attention_bwd_cuda(sq, sk, sv, so, lse, dout, True), want, ATTN_GRAD_RULE)["max_ratio"]
+        del want, leaves, out, sq, sk, sv, so, lse
+        f32 = attention_grads(*(t.float() for t in (q, k, v, dout)))
+        f64 = attention_grads(*(t.double() for t in (q, k, v, dout)))
+        reading["plain_f32_vs_f64"] = grad_reading(f32, f64, ATTN_GRAD_RULE)["max_ratio"]
+        del f32, f64
+        res[f"flash_attention_bwd bfloat16 {(b, hq, hkv, seq, d)} causal"] = {**reading, **time_attention_bwd(q, k, v, dout)}
+        gc.collect()
+        torch.cuda.empty_cache()
     return res
 
 
@@ -988,6 +1150,141 @@ def phase_main_serve(path: str) -> dict:
     return out
 
 
+def phase_train_olmo() -> dict:
+    """``train_olmo``: ``Trainer.fit`` on OLMo-1B at full width, as the
+    module docstring says.  The model's attention calls are wrapped to keep
+    the first layer's (q, k, v) of the first step and, by a hook on its
+    output, its dO; the train step to count each step's launches; the
+    checkpointer and ``restore`` to time them."""
+    cfg = get_arch(TRAIN_ARCH)
+    shape, reduced = one_card.one_card_train_shape(SHAPES[TRAIN_SHAPE])
+    ckpt_dir = tempfile.mkdtemp(prefix="train_olmo_", dir=ROOT / "build")
+    free_bytes = shutil.disk_usage(ckpt_dir).free
+    captured, per_step, faults = {}, [], []
+    timings = {"snapshot_s": [], "wait_s": [], "restore_s": []}
+    original_attention, original_restore = model_layers.flash_attention, train_trainer.restore
+
+    def capture(q, k, v, causal=True, **kw):
+        out = original_attention(q, k, v, causal=causal, **kw)
+        if "q" not in captured and out.requires_grad:
+            captured.update(q=q.detach(), k=k.detach(), v=v.detach())
+            out.register_hook(lambda g: captured.setdefault("dout", g.detach().contiguous()))
+        return out
+
+    def timed_restore(*args, **kw):
+        t0 = time.perf_counter()
+        out = original_restore(*args, **kw)
+        torch.cuda.synchronize()
+        timings["restore_s"].append(time.perf_counter() - t0)
+        return out
+
+    def fault_hook(step):
+        if step == TRAIN_FAULT_STEP and not faults:
+            faults.append(step)
+            raise RuntimeError(f"injected fault at step {step}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model_layers.flash_attention = capture
+    train_trainer.restore = timed_restore
+    try:
+        t0 = time.perf_counter()
+        model = model_registry.build_model(cfg, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        trainer = Trainer(model, make_optimizer("adamw"),
+                          TrainerConfig(ckpt_dir=ckpt_dir, ckpt_every=TRAIN_CKPT_EVERY, keep=1), fault_hook)
+        step_fn, save, wait = trainer.step_fn, trainer.ckpt.save, trainer.ckpt.wait
+
+        def counted_step(opt_state, batch):
+            before = read_counts()
+            out = step_fn(opt_state, batch)
+            after = read_counts()
+            per_step.append({n: after[n] - before[n] for n in after})
+            return out
+
+        def timed_wait():
+            t0 = time.perf_counter()
+            wait()
+            timings["wait_s"].append(time.perf_counter() - t0)
+
+        def timed_save(step, state, blocking=False):
+            timed_wait()
+            t0 = time.perf_counter()
+            save(step, state, blocking)
+            timings["snapshot_s"].append(time.perf_counter() - t0)
+
+        trainer.step_fn, trainer.ckpt.save, trainer.ckpt.wait = counted_step, timed_save, timed_wait
+        dataset = SyntheticTokenDataset(cfg.vocab, shape.seq_len, shape.global_batch, seed=0)
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer.fit(dataset, n_steps=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        log, restarts = trainer.log, trainer.restarts
+        n_params = sum(p.numel() for p in model.parameters())
+        del trainer, model
+    finally:
+        model_layers.flash_attention = original_attention
+        train_trainer.restore = original_restore
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    steps = [e for e in log if e["event"] == "step"]
+    reruns = [e["loss"] for e in steps if e["step"] == TRAIN_RERUN_STEP]
+    warm_s = statistics.median(e["dt"] for e in steps[1:])
+    layers = cfg.n_layers
+    res = {"phase": "main", "path": "train_olmo", "arch": cfg.name, "reduced": reduced,
+           "n_layers": layers, "d_model": cfg.d_model, "params": n_params, "seq_len": shape.seq_len,
+           "global_batch": shape.global_batch, "remat": cfg.remat, "optimizer": "adamw",
+           "init_s": init_s, "fit_s": fit_s, "seconds": fit_s, "launches": launches,
+           "launches_per_step": per_step, "steps": [{k: e[k] for k in ("step", "loss", "grad_norm", "dt")} for e in steps],
+           "restarts": restarts, "events": [e for e in log if e["event"] != "step"],
+           "rerun_losses": reruns,
+           "step_ms_warm_median": warm_s * 1e3,
+           "tokens_per_s": shape.global_batch * shape.seq_len / warm_s,
+           "max_memory_allocated": peak, "disk_free_bytes": free_bytes, **timings}
+    bad = []
+    if not all(math.isfinite(e["loss"]) and math.isfinite(e["grad_norm"]) for e in steps):
+        bad.append("a loss or a gradient norm is not finite")
+    if restarts != 1 or [e["step"] for e in log if e["event"] == "restart"] != [TRAIN_RERUN_STEP]:
+        bad.append(f"the fault at step {TRAIN_FAULT_STEP} was not restored from step {TRAIN_RERUN_STEP}")
+    if len(reruns) != 2 or not abs(reruns[1] - reruns[0]) <= TRAIN_RERUN_RTOL * abs(reruns[0]):
+        bad.append(f"step {TRAIN_RERUN_STEP} did not re-run to its loss: {reruns}")
+    if len(steps) != TRAIN_STEPS + 1 or [e["step"] for e in steps][-1] != TRAIN_STEPS - 1:
+        bad.append(f"the steps run: {[e['step'] for e in steps]}")
+    want = {n: {"flash_attention": 2 * layers, "flash_attention_bwd": layers}.get(n, 0) for n in KERNELS}
+    if any(c != want for c in per_step) or len(per_step) != len(steps):
+        bad.append(f"each step must launch {want}: {per_step}")
+    if "dout" not in captured:
+        bad.append("no layer's dO was captured")
+    else:
+        q, k, v, dout = (captured[n] for n in ("q", "k", "v", "dout"))
+        b, hq, seq, d = q.shape
+        tile = attention.select_blocks(b, hq, k.shape[1], seq, d)
+        reading = grad_reading(attention_grads(q, k, v, dout, True, tile), attention_grads(q, k, v, dout),
+                               ATTN_GRAD_RULE)
+        fwd_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            fwd_ms = time_ms(lambda: attn_kernel.FlashAttentionFn.apply(*fwd_leaves, True, *tile))
+        res["captured"] = {"shape": [b, hq, k.shape[1], seq, d], "tile": tile, **reading,
+                           "forward_ms": fwd_ms, **time_attention_bwd(q, k, v, dout)}
+        res["captured"]["forward_bound_ms"] = attention_bound(q, k, v, q)[0]
+        if not reading["max_ratio"] <= 1.0:
+            bad.append(f"the backward kernel disagrees with the plain version on the model's inputs: {reading}")
+    del captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(res)
+    if bad:
+        fail(f"train_olmo: {'; '.join(bad)}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1002,6 +1299,7 @@ def main() -> int:
     phase_rank()
     main_results += [phase_main_attention(), phase_main_wkv()]
     served = {path: phase_main_serve(path) for path in SERVE}
+    train = phase_train_olmo()
     for r in main_results:  # launches over every main path that runs the kernel
         r["launches_by_path"] = {OWN_PATH[r["name"]]: r["launches"]}
         for path, res in served.items():
@@ -1009,7 +1307,14 @@ def main() -> int:
                 r["launches_by_path"][path] = res["launches"][r["name"]]
             if res["frontend"] and res["frontend"]["launches"][r["name"]]:
                 r["launches_by_path"][f"{path}_frontend"] = res["frontend"]["launches"][r["name"]]
+        if train["launches"][r["name"]]:
+            r["launches_by_path"]["train_olmo"] = train["launches"][r["name"]]
         r["launches"] = sum(r["launches_by_path"].values())
+    bwd = train["captured"]
+    main_results.append({"name": "flash_attention_bwd", "launches": train["launches"]["flash_attention_bwd"],
+                         "launches_by_path": {"train_olmo": train["launches"]["flash_attention_bwd"]},
+                         **{k: bwd[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms")}})
     kernels = [{"name": r["name"], "route": "cuda", "source": KERNELS[r["name"]][1],
                 "replaces": KERNELS[r["name"]][2], "launches": r["launches"],
                 "launches_by_path": r["launches_by_path"],

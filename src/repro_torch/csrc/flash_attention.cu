@@ -57,6 +57,17 @@
 // the dispatch compiles 16 (the models' smoke configs), 32, 64, 112
 // (Zamba2-7B), 128 (Qwen2.5-14B) and 160 (StableLM-12B) on every tile.
 //
+// What training adds.  Given an `lse` pointer (the autograd Function of
+// kernels/attention/kernel.py), each row's m + log(max(l, 1e-30)) is
+// written in f32, so that the backward (flash_attention_bwd.cu) recomputes
+// P = exp(x - lse) without a second pass over the keys.  Given `out_lo`
+// (bf16), the output's rounding error bf16(o - bf16(o)) is written beside
+// it, split as P is: the backward's D = rowsum(dO o o) from the rounded
+// output alone misses the plain version's gradient by 20 to 35 times
+// ATTN_GRAD_RULE where a causal row sees few keys (chip_smoke.py's
+// `without_out_lo`).
+// The serving path passes null for both and writes nothing more.
+//
 // Shared memory per block.  bf16: Q (BQ x (D+8)), then K and V (BKV x (D+8)
 // each) in two stages, in bf16: 87 KB at (64, 64), D = 128, so two blocks
 // share an SM; at most 129,024 B, at (128, 64), D = 160.  f32: Q
@@ -175,8 +186,8 @@ struct TcTile {
 template <int BQ, int BKV, int D>
 __global__ void __launch_bounds__((TcTile<BQ, BKV, D>::kThreads), (TcTile<BQ, BKV, D>::kMinBlocks))
     flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ out, int hq, int hkv, int seq,
-                    int causal, float scale) {
+                    const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
+                    bf16* __restrict__ out_lo, int hq, int hkv, int seq, int causal, float scale) {
   using TL = TcTile<BQ, BKV, D>;
   constexpr int R = TL::kRow;
   constexpr int KD = D / 16;   // k steps of Q K^T
@@ -318,11 +329,15 @@ __global__ void __launch_bounds__((TcTile<BQ, BKV, D>::kThreads), (TcTile<BQ, BK
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float denom = fmaxf(l[h], 1e-30f);
-    bf16* o = out + q_off + static_cast<int64_t>(wrow + g + 8 * h) * D + 2 * tq;
+    if (lse != nullptr && tq == 0) lse[q_off / D + wrow + g + 8 * h] = m[h] + logf(denom);
+    const int64_t o_off = q_off + static_cast<int64_t>(wrow + g + 8 * h) * D + 2 * tq;
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<uint32_t*>(o + nd * 8) = pack_bf16(
-          __float2bfloat16_rn(acc[nd][2 * h] / denom), __float2bfloat16_rn(acc[nd][2 * h + 1] / denom));
+    for (int nd = 0; nd < ND; ++nd) {
+      uint32_t hi, lo;
+      split_p(acc[nd][2 * h] / denom, acc[nd][2 * h + 1] / denom, hi, lo);
+      *reinterpret_cast<uint32_t*>(out + o_off + nd * 8) = hi;
+      if (out_lo != nullptr) *reinterpret_cast<uint32_t*>(out_lo + o_off + nd * 8) = lo;
+    }
   }
 }
 
@@ -358,7 +373,8 @@ __device__ __forceinline__ float row_sum(float x) {
 template <int BQ, int BKV, int D>
 __global__ void __launch_bounds__(F32Tile<BQ, BKV, D>::kThreads)
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out, int hq, int hkv,
+                     const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
+                     float* __restrict__ /* out_lo: f32 outputs are exact */, int hq, int hkv,
                      int seq, int causal, float scale) {
   using TL = F32Tile<BQ, BKV, D>;
   constexpr int CS = BKV / kColThreads;  // score columns per thread
@@ -469,6 +485,7 @@ __global__ void __launch_bounds__(F32Tile<BQ, BKV, D>::kThreads)
 #pragma unroll
   for (int a = 0; a < kRows; ++a) {
     const float denom = fmaxf(l[a], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[o_off / D + a] = m[a] + logf(denom);
 #pragma unroll
     for (int e = 0; e < CD; ++e) out[o_off + a * D + tx + kColThreads * e] = acc[a][e] / denom;
   }
@@ -481,6 +498,8 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
+  float* lse;
+  void* out_lo;
   int batch, hq, hkv, seq, causal;
   float scale;
   cudaStream_t stream;
@@ -514,7 +533,7 @@ int launch_tile(const Args& a) {
   const dim3 grid(a.hq, a.batch, a.seq / BQ);
   kernel<<<grid, KN::kThreads, KN::kBytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.out), a.hq, a.hkv, a.seq, a.causal, a.scale);
+      static_cast<T*>(a.out), a.lse, static_cast<T*>(a.out_lo), a.hq, a.hkv, a.seq, a.causal, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -582,14 +601,21 @@ int attrs_typed(int d, int bq, int bkv, Attrs* out) {
 extern "C" {
 
 // dtype: 0 = f32, 1 = bf16.  q, out: (batch, hq, seq, d); k, v: (batch, hkv,
-// seq, d), all contiguous.  Returns cudaGetLastError() after the launch (0
-// on success); argument errors return cudaErrorInvalidValue.
+// seq, d), all contiguous.  lse: null, or (batch, hq, seq) f32 that receives
+// each row's log-sum-exp m + log(max(l, 1e-30)) of the scaled, masked
+// logits, which the backward (flash_attention_bwd.cu) recomputes P from.
+// out_lo: null, or for bf16 a second (batch, hq, seq, d) bf16 output that
+// receives bf16(o - out), o the f32 result, so that out + out_lo holds o to
+// about 2^-16 of its value (ignored for f32, whose out is o).  Returns
+// cudaGetLastError() after the launch (0 on success); argument errors
+// return cudaErrorInvalidValue.
 int flash_attention_launch(int dtype, int d, int block_q, int block_kv, const void* q,
-                           const void* k, const void* v, void* out, int batch, int hq,
-                           int hkv, int seq, int causal, float scale, void* stream) {
+                           const void* k, const void* v, void* out, void* lse, void* out_lo,
+                           int batch, int hq, int hkv, int seq, int causal, float scale,
+                           void* stream) {
   if (batch < 1 || hkv < 1 || hq % hkv || seq % block_q || seq % block_kv)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, out, batch, hq, hkv, seq, causal, scale,
+  const Args a{q, k, v, out, static_cast<float*>(lse), out_lo, batch, hq, hkv, seq, causal, scale,
                static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case 0: return launch_typed<float>(d, block_q, block_kv, a);

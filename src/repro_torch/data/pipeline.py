@@ -1,0 +1,67 @@
+"""Deterministic synthetic data pipeline.
+
+Counterpart of ``repro.data.pipeline``.  The dataset is a pure function of
+(seed, step), made with numpy exactly as the JAX package makes it, so both
+packages see the same tokens, labels and frontend embeddings at every step
+and a restart resumes bit-identically from a checkpointed step.  Tokens
+follow a skewed (Zipf-ish) distribution with a simple Markov overlay.
+
+The JAX package's ``ShardedLoader`` places batches on a device mesh; the
+port has one device until distribution is ported, and copies each batch to
+it with :func:`to_device`.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class SyntheticTokenDataset:
+    def __init__(
+        self,
+        vocab: int,
+        seq_len: int,
+        global_batch: int,
+        seed: int = 0,
+        n_frontend_tokens: int = 0,
+        frontend_dim: int = 0,
+    ):
+        self.vocab = vocab
+        self.seq_len = seq_len
+        self.global_batch = global_batch
+        self.seed = seed
+        self.n_frontend_tokens = n_frontend_tokens
+        self.frontend_dim = frontend_dim
+        # fixed Markov successor table: token t prefers successor (a*t + b) % V
+        rng = np.random.default_rng(seed)
+        self._succ = rng.permutation(vocab).astype(np.int32)
+
+    def batch(self, step: int) -> dict[str, np.ndarray]:
+        rng = np.random.default_rng((self.seed * 1_000_003 + step) & 0x7FFFFFFF)
+        B, S, V = self.global_batch, self.seq_len, self.vocab
+        # Zipf-ish marginal via exponential transform
+        u = rng.random((B, S))
+        base = np.minimum((np.exp(u * 6.0) - 1.0) / (np.e**6 - 1.0) * V, V - 1).astype(
+            np.int32
+        )
+        # Markov overlay: with p=0.5 the next token is succ(prev)
+        toks = base.copy()
+        follow = rng.random((B, S)) < 0.5
+        toks[:, 1:] = np.where(follow[:, 1:], self._succ[toks[:, :-1]], base[:, 1:])
+        labels = np.concatenate([toks[:, 1:], toks[:, :1]], axis=1)
+        out = {"tokens": toks, "labels": labels}
+        if self.n_frontend_tokens:
+            out["frontend_embeds"] = rng.standard_normal(
+                (B, self.n_frontend_tokens, self.frontend_dim)
+            ).astype(np.float32)
+        return out
+
+
+def to_device(batch: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
+    """A host batch as tensors on ``device``: token ids as int64, the index
+    type of the embedding gather, and embeddings in their own dtype."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(v)
+        out[k] = t.to(device, torch.int64) if v.dtype.kind in "iu" else t.to(device)
+    return out

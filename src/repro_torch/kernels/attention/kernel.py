@@ -8,6 +8,14 @@ tensor cores (``mma.sync``, with P split in two bf16 halves to keep its f32
 precision); f32 runs scalar FMAs.  A tensor on the CPU goes to the plain
 version (:func:`~repro_torch.kernels.attention.ref.mha_plain`); a CUDA
 tensor launches the kernel or raises.
+
+Gradients.  Where grad mode is on and q, k or v requires grad, a CUDA call
+goes through :class:`FlashAttentionFn`: its forward launches the same
+kernel and also writes each row's log-sum-exp, and its backward launches
+the hand-written backward (``csrc/flash_attention_bwd.cu``,
+:func:`flash_attention_bwd_cuda`).  The output therefore always carries a
+``grad_fn`` when an input requires grad.  On the CPU autograd runs through
+the plain version, whose autograd is also the backward's plain version.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from .ref import mha_plain
 # compile time, a tile that would not fit an H100 block
 TILES = ((32, 32), (64, 32), (64, 64), (128, 64))
 HEAD_DIMS = (16, 32, 64, 112, 128, 160)
+BWD_BF16_SEQ = 32  # the bf16 backward stages 32 queries or keys a step
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -37,11 +46,24 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention").cdll
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_launch.argtypes = (
-        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_void_p]
     )
     lib.flash_attention_attributes.restype = ctypes.c_int
     lib.flash_attention_attributes.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 4
+    return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd").cdll
+    lib.flash_attention_bwd_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_launch.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    lib.flash_attention_bwd_attributes.restype = ctypes.c_int
+    lib.flash_attention_bwd_attributes.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4
     return lib
 
 
@@ -85,22 +107,115 @@ def flash_attention_cuda(
                          f"tiles {TILES} at head dims {HEAD_DIMS} are")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, block_q, block_kv)
     out = torch.empty_like(q)
+    _launch_forward(q, k, v, out, None, None, causal, block_q, block_kv)
+    return out
+
+
+def _launch_forward(q, k, v, out, lse, out_lo, causal: bool, block_q: int, block_kv: int) -> None:
+    """Launches the forward on checked CUDA tensors into ``out`` and, where
+    given, each row's log-sum-exp into ``lse`` (B, Hq, S) f32 and, for bf16,
+    the output's rounding error ``bf16(o - out)`` into ``out_lo``."""
+    b, hq, s, d = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _lib().flash_attention_launch(
             _DTYPE_CODES[q.dtype], d, block_q, block_kv, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), b, hq, k.shape[1], s, int(causal),
-            1.0 / d**0.5, stream,
+            v.data_ptr(), out.data_ptr(), *(None if t is None else t.data_ptr() for t in (lse, out_lo)),
+            b, hq, k.shape[1], s, int(causal), 1.0 / d**0.5, stream,
         )
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err} "
                            f"(tile ({block_q}, {block_kv}), head dim {d})")
     flash_attention_cuda.launches += 1
-    return out
 
 
 flash_attention_cuda.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The flash kernel with its gradient: the forward saves q, k, v, the
+    output, the rows' log-sum-exp and, for bf16, the output's rounding
+    error; the backward launches the backward kernel.  Under
+    ``torch.utils.checkpoint`` the forward runs again in the backward pass,
+    and what that run saves is what the backward reads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, block_q: int, block_kv: int):
+        out = torch.empty_like(q)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        out_lo = torch.empty_like(q) if q.dtype == torch.bfloat16 else None
+        _launch_forward(q, k, v, out, lse, out_lo, causal, block_q, block_kv)
+        ctx.save_for_backward(q, k, v, out, lse, out_lo)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, out_lo = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, dout.contiguous(), ctx.causal, out_lo)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool = True, out_lo=None):
+    """(dq, dk, dv) of attention for the upstream gradient ``dout`` of its
+    output ``out``, in the inputs' dtype; ``lse`` (B, Hq, S) f32 is the
+    forward's log-sum-exp per row and ``out_lo`` (bf16 only; may be None)
+    the forward's rounding error of ``out``, which makes
+    D = rowsum(dout * o) that of the f32 output.  A CPU tensor runs the
+    plain version, autograd through :func:`~.ref.mha_plain` (``out``,
+    ``lse`` and ``out_lo`` unread); a CUDA tensor launches
+    ``csrc/flash_attention_bwd.cu`` (the head dims of the forward; any S in
+    f32, S a multiple of 32 in bf16, as the forward's tiles ask) or
+    raises."""
+    _check(q, k, v, 1, 1)
+    if (out.shape != q.shape or dout.shape != q.shape or tuple(lse.shape) != tuple(q.shape[:3])
+            or (out_lo is not None and out_lo.shape != q.shape)):
+        raise ValueError(f"out, out_lo and dout must be {tuple(q.shape)} and lse {tuple(q.shape[:3])}, got "
+                         f"{tuple(out.shape)}, {None if out_lo is None else tuple(out_lo.shape)}, "
+                         f"{tuple(dout.shape)}, {tuple(lse.shape)}")
+    if q.device.type == "cpu":
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            return torch.autograd.grad(mha_plain(*leaves, causal), leaves, dout)
+    given = (q, k, v, out, lse, dout) + (() if out_lo is None else (out_lo,))
+    if q.device.type != "cuda" or any(t.device != q.device for t in given):
+        raise ValueError(f"flash_attention_bwd_cuda takes CPU or CUDA tensors on one device, got {q.device}")
+    if (q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in (out, dout))
+            or lse.dtype != torch.float32 or (out_lo is not None and out_lo.dtype != torch.bfloat16)):
+        raise TypeError(f"flash_attention_bwd_cuda takes f32 or bf16 q, k, v, out, dout, bf16 out_lo "
+                        f"and f32 lse, got {q.dtype}, {out.dtype}, {dout.dtype}, {lse.dtype}")
+    b, hq, s, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} is not compiled; head dims {HEAD_DIMS} are")
+    if q.dtype == torch.bfloat16 and s % BWD_BF16_SEQ:
+        raise ValueError(f"the bf16 backward takes seq a multiple of {BWD_BF16_SEQ}, got {s}")
+    if not all(t.is_contiguous() for t in given):
+        raise ValueError("q, k, v, out, out_lo, lse and dout must be contiguous")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    _launch_backward(q, k, v, out, out_lo, lse, dout, dq, dk, dv, delta, causal)
+    return dq, dk, dv
+
+
+def _launch_backward(q, k, v, out, out_lo, lse, dout, dq, dk, dv, delta, causal: bool) -> None:
+    """Launches the backward's three kernels (D, then dK and dV, then dQ) on
+    checked CUDA tensors; ``delta`` (B, Hq, S) f32 is their scratch."""
+    b, hq, s, d = q.shape
+    ptrs = [None if t is None else t.data_ptr() for t in (q, k, v, out, out_lo, lse, dout, dq, dk, dv, delta)]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _bwd_lib().flash_attention_bwd_launch(
+            _DTYPE_CODES[q.dtype], d, *ptrs, b, hq, k.shape[1], s, int(causal), 1.0 / d**0.5, stream,
+        )
+    if err:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA error {err} (head dim {d})")
+    flash_attention_bwd_cuda.launches += 1
+
+
+flash_attention_bwd_cuda.launches = 0
 
 
 def kernel_attributes(dtype: torch.dtype, d: int, block_q: int, block_kv: int) -> dict:
@@ -113,6 +228,23 @@ def kernel_attributes(dtype: torch.dtype, d: int, block_q: int, block_kv: int) -
     if err:
         raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err} "
                            f"(tile ({block_q}, {block_kv}), head dim {d})")
+    regs, local_bytes, max_threads, smem = (x.value for x in vals)
+    return {"registers": regs, "local_bytes": local_bytes, "max_threads_per_block": max_threads,
+            "smem_bytes": smem}
+
+
+BWD_KERNELS = ("delta", "dkdv", "dq")
+
+
+def bwd_kernel_attributes(dtype: torch.dtype, d: int, which: str) -> dict:
+    """Registers and local (spill) bytes per thread, the largest block and
+    the dynamic shared memory of one of the backward's kernels
+    (:data:`BWD_KERNELS`) at head dim ``d``."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    err = _bwd_lib().flash_attention_bwd_attributes(
+        _DTYPE_CODES[dtype], d, BWD_KERNELS.index(which), *(ctypes.byref(x) for x in vals))
+    if err:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err} (backward {which}, head dim {d})")
     regs, local_bytes, max_threads, smem = (x.value for x in vals)
     return {"registers": regs, "local_bytes": local_bytes, "max_threads_per_block": max_threads,
             "smem_bytes": smem}

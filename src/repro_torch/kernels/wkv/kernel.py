@@ -6,8 +6,10 @@ steps inside it, and the block's (K, 16) slice of the f32 state in
 registers across the loop.  The bonus ``u`` is one row for all
 (batch*head) rows or one per head, and an initial state ``s0`` may seed the
 registers (the models' prefill).  A tensor on the CPU goes to the plain version
-(:func:`~repro_torch.kernels.wkv.ref.wkv_plain`); a CUDA tensor launches the
-kernel or raises.
+(:func:`~repro_torch.kernels.wkv.ref.wkv_plain`), autograd included; a CUDA
+tensor launches the kernel or raises.  The kernel has no backward yet, so
+a CUDA call in grad mode with an input that requires grad raises
+``NotImplementedError`` instead of returning an output without a gradient.
 """
 from __future__ import annotations
 
@@ -61,9 +63,16 @@ def wkv_cuda(r, k, v, wlog, u, chunk: int = 64, s0=None) -> tuple[torch.Tensor, 
         raise ValueError(f"seq {seq} not divisible by chunk {chunk}")
     if r.device.type == "cpu":
         return wkv_plain(r, k, v, wlog, u, s0)
+    given = (r, k, v, wlog, u) + (() if s0 is None else (s0,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in given):
+        # the kernel's output would carry no gradient, and the plain version
+        # never runs on the card: refuse rather than cut the gradient
+        raise NotImplementedError(
+            "wkv_cuda has no backward: the gradient of the WKV on the card needs a WKV backward "
+            "kernel, which csrc/wkv.cu does not have yet; call it under torch.no_grad(), or "
+            "train RWKV6 on the CPU")
     if r.device.type != "cuda":
         raise ValueError(f"wkv_cuda takes CPU or CUDA tensors, got {r.device}")
-    given = (r, k, v, wlog, u) + (() if s0 is None else (s0,))
     if any(t.dtype != torch.float32 for t in given):
         raise TypeError("wkv_cuda takes f32 r, k, v, wlog, u and s0")
     if kd not in HEAD_DIMS or chunk not in CHUNKS:

@@ -1,5 +1,5 @@
-"""What of a config one 80 GB card serves: the depth cut and the attention
-layers a prefill runs.
+"""What of a config one 80 GB card serves or trains: the depth cut, the
+attention layers a prefill runs, and the training batch.
 
 Widths stay the published ones.  Where the published depth does not fit one
 card in f32 (``ArchConfig.n_params()`` x 4 B) with room for the per-use bf16
@@ -11,14 +11,23 @@ layer it keeps is drawn as the published model's: the fan-in rule draws
 every stacked block weight with std ``scale / sqrt(n_layers)``, which at 24
 of 60 layers would be 1.58 times the published one and at 4 of 40 3.16
 times.
+
+Training keeps f32 parameters, their gradients and two f32 AdamW moments
+(16 B a parameter: OLMo-1B's 1,279.8 M take 20.5 GB) beside the step's
+activations, among them the f32 logits of every position (B x S x vocab x
+4 B) and their gradient.  The one-card training shape keeps a shape's
+sequence length and cuts its global batch to ``ONE_CARD_TRAIN_BATCH``
+(``train_4k``: 4 of 256 sequences of 4096; 256 would take 64 accumulation
+microbatches a step).
 """
 from __future__ import annotations
 
 import dataclasses
 
-from ..configs import ArchConfig, get_arch
+from ..configs import ArchConfig, ShapeConfig, get_arch
 
 ONE_CARD_LAYERS = {"llava-next-34b": 24, "dbrx-132b": 4}
+ONE_CARD_TRAIN_BATCH = 4
 
 
 def one_card_config(arch: str) -> tuple[ArchConfig, dict]:
@@ -39,3 +48,13 @@ def attention_layers(cfg: ArchConfig) -> int:
     if cfg.family == "ssm":
         return 0
     return cfg.n_layers // cfg.shared_attn_period if cfg.family == "hybrid" else cfg.n_layers
+
+
+def one_card_train_shape(shape: ShapeConfig) -> tuple[ShapeConfig, dict]:
+    """``shape`` with its global batch cut to what one card trains, and the
+    cut as ``{"global_batch": [kept, published]}`` ({} where there is
+    none)."""
+    kept = min(shape.global_batch, ONE_CARD_TRAIN_BATCH)
+    if kept == shape.global_batch:
+        return shape, {}
+    return dataclasses.replace(shape, global_batch=kept), {"global_batch": [kept, shape.global_batch]}

@@ -13,9 +13,17 @@ Counterpart of ``repro.models.registry``.  One :class:`LM` module covers:
 The JAX package scans over stacked per-layer parameters; here each layer is
 a module of its own in an ``nn.ModuleList``, and :func:`unstack` turns the
 blueprint's stacked ``(L, ...)`` leaves into per-layer parameters (views of
-the stacked storage, so nothing is copied).  The parameters carry no
-gradients: ``loss`` is forward-only, and training waits for ROADMAP Queue 1
-item 4.
+the stacked storage, so nothing is copied).  The parameters are built
+with ``requires_grad=False``, since serving needs no gradients; training
+turns them on with ``model.requires_grad_()`` (``train/step.py``).
+
+Remat follows ``cfg.remat`` as the JAX package's ``jax.checkpoint`` does:
+with grad mode on and no cache, each dense/MoE and each RWKV6 layer runs
+under ``torch.utils.checkpoint.checkpoint`` (non-reentrant), and in the
+hybrid each Mamba2 layer and each group of ``shared_attn_period`` layers
+with its shared attention block.  Only the layers' inputs stay alive
+between the forward and the backward; each layer's forward runs again
+inside the backward pass (the flash kernel's too).
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from typing import Any, Mapping, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
@@ -250,16 +259,31 @@ class LM(nn.Module):
         w = self.embed.T if self.cfg.tie_embeddings else self.unembed
         return h.float() @ w.float()  # f32 logits
 
+    def _hybrid_group(self, g: int, h, positions):
+        """Group ``g`` of the hybrid without a cache, under remat: its
+        ``shared_attn_period`` Mamba2 layers, each under ``checkpoint``,
+        then the shared attention block."""
+        n = self.cfg.shared_attn_period
+        for block in self.blocks[g * n:(g + 1) * n]:
+            h, _ = checkpoint(block, h, None, use_reentrant=False)
+        h, _, _ = self.shared_attn(h, positions, None)
+        return h
+
     def _run_blocks(self, h, positions, cache=None):
         """Runs every layer; updates ``cache`` in place where one is given.
         Returns (h, the aux loss: the MoE layers' mean, else 0)."""
         cfg = self.cfg
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
+        if remat and cfg.family == "hybrid":
+            for g in range(cfg.n_layers // cfg.shared_attn_period):
+                h = checkpoint(self._hybrid_group, g, h, positions, use_reentrant=False)
+            return h, torch.zeros((), dtype=torch.float32, device=h.device)
         auxs = []
         for i, block in enumerate(self.blocks):
             if cfg.family == "ssm":
                 st = None if cache is None else {"shift_tm": cache.shift_tm[i],
                                                  "shift_cm": cache.shift_cm[i], "s": cache.s[i]}
-                h, new = block(h, st)
+                h, new = checkpoint(block, h, None, use_reentrant=False) if remat else block(h, st)
                 if cache is not None:
                     cache.shift_tm[i].copy_(new["shift_tm"])
                     cache.shift_cm[i].copy_(new["shift_cm"])
@@ -277,7 +301,10 @@ class LM(nn.Module):
                     h, _, _ = self.shared_attn(h, positions, kv)
             else:
                 kv = None if cache is None else {"k": cache.k[i], "v": cache.v[i], "len": cache.length}
-                h, aux, _ = block(h, positions, kv)
+                if remat:
+                    h, aux, _ = checkpoint(block, h, positions, None, use_reentrant=False)
+                else:
+                    h, aux, _ = block(h, positions, kv)
                 auxs.append(aux)
         if cfg.moe is not None:
             return h, torch.stack(auxs).mean()
@@ -304,7 +331,8 @@ class LM(nn.Module):
     def loss(self, batch: Mapping[str, torch.Tensor]):
         """(CE + 1e-4 z-loss + 1e-2 aux, {"ce", "aux", "zloss"}) of
         ``batch`` = {"tokens", "labels"} (B, S), and "frontend_embeds" where
-        the config has a frontend.  Forward only: no gradients."""
+        the config has a frontend.  Differentiable: the train step
+        (``train/step.py``) takes its gradient."""
         logits, aux = self.forward(batch["tokens"], batch.get("frontend_embeds"))
         lse = torch.logsumexp(logits, dim=-1)
         picked = logits.gather(-1, batch["labels"][..., None].long())[..., 0]

@@ -10,13 +10,21 @@ tighter than that file's 4e-2 and still above one bf16 ulp (at most
 2^-7 |b|), the most by which two f32 results each rounded to bf16 differ.
 The CUDA kernel itself is held against the plain version on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+
+Gradients: autograd through the entry point on CPU tensors (the plain
+version) against ``jax.grad`` of ``mha_ref`` at the f32 tolerance; the
+plain version through ``torch.autograd.gradcheck`` in f64; and the autograd
+Function that carries the CUDA kernels, with its launches replaced by plain
+versions, with and without remat.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro.kernels.attention import flash_attention as jax_flash_attention
 from repro.kernels.attention import mha_ref
@@ -28,6 +36,7 @@ from repro_torch.kernels.attention import (
     mha_plain,
     select_blocks,
 )
+from repro_torch.kernels.attention import kernel as kernel_mod
 from repro_torch.kernels.attention.kernel import TILES, compiled
 from repro_torch.kernels.attention.ops import MEASURED_ORDER
 
@@ -210,3 +219,110 @@ def test_attention_state_round_trips_exactly(dtype):
         assert t.dtype == (torch.float32 if dtype == jnp.float32 else torch.bfloat16)
         assert t.is_contiguous() and tuple(t.shape) == a.shape
         np.testing.assert_array_equal(_f32(t), np.asarray(a, np.float32))
+
+
+# --------------------------------------------------------------------------- #
+# Gradients
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (10, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_gradients_match_jax_grad_of_the_reference(hq, hkv, causal):
+    """Autograd through the CPU entry point (the plain version) against
+    ``jax.grad`` of ``mha_ref`` for one upstream gradient, f32 rtol = atol =
+    3e-5 (the forward's f32 tolerance)."""
+    (q, k, v), (qt, kt, vt) = _inputs(31, 2, hq, hkv, 64, 32, jnp.float32)
+    dout = np.random.default_rng(32).normal(size=q.shape).astype(np.float32)
+    want = jax.grad(lambda a, b, c: jnp.sum(mha_ref(a, b, c, causal=causal) * dout), argnums=(0, 1, 2))(q, k, v)
+    leaves = [t.requires_grad_() for t in (qt, kt, vt)]
+    out = flash_attention(*leaves, causal=causal)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(dout))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_attention_passes_gradcheck_in_f64(causal):
+    rng = np.random.default_rng(33)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, h, 8, 4))).requires_grad_() for h in (4, 2, 2))
+    assert torch.autograd.gradcheck(lambda a, b, c: mha_plain(a, b, c, causal), (q, k, v))
+
+
+def _stub_launches(monkeypatch):
+    """The autograd Function's forward launch and its backward wrapper
+    replaced by plain versions on CPU tensors (this host has no card), which
+    count their calls and compute from what the Function saved (the output
+    and the rows' log-sum-exp): the Function's own plumbing (what it saves,
+    what the backward reads, the recomputed forward under checkpoint) then
+    runs here."""
+    calls = {"forward": 0, "backward": 0}
+
+    def forward(q, k, v, out, lse, out_lo, causal, block_q, block_kv):
+        calls["forward"] += 1
+        out.copy_(mha_plain(q, k, v, causal))
+        group, d = q.shape[1] // k.shape[1], q.shape[-1]
+        x = q.float() @ k.float().repeat_interleave(group, 1).transpose(-1, -2) / d**0.5
+        if causal:
+            x = torch.where(torch.ones(x.shape[-2:], dtype=torch.bool).tril(), x, -1e30)
+        lse.copy_(torch.logsumexp(x, -1))
+
+    def backward(q, k, v, out, lse, dout, causal, out_lo=None):
+        calls["backward"] += 1
+        # P from the saved log-sum-exp and D from the saved output, as the kernel has them
+        group, d = q.shape[1] // k.shape[1], q.shape[-1]
+        kf, vf = (t.float().repeat_interleave(group, 1) for t in (k, v))
+        x = q.float() @ kf.transpose(-1, -2) / d**0.5
+        if causal:
+            x = torch.where(torch.ones(x.shape[-2:], dtype=torch.bool).tril(), x, -1e30)
+        p = torch.exp(x - lse[..., None])
+        ds = p * (dout.float() @ vf.transpose(-1, -2) - (dout.float() * out.float()).sum(-1, keepdim=True))
+        return (ds @ kf / d**0.5,
+                (ds.transpose(-1, -2) @ q.float() / d**0.5).unflatten(1, (k.shape[1], group)).sum(2),
+                (p.transpose(-1, -2) @ dout.float()).unflatten(1, (k.shape[1], group)).sum(2))
+
+    monkeypatch.setattr(kernel_mod, "_launch_forward", forward)
+    monkeypatch.setattr(kernel_mod, "flash_attention_bwd_cuda", backward)
+    return calls
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_the_autograd_function_saves_what_its_backward_reads(monkeypatch, remat):
+    calls = _stub_launches(monkeypatch)
+    (_, (qt, kt, vt)) = _inputs(34, 2, 4, 2, 64, 16, jnp.float32)
+    leaves = [t.requires_grad_() for t in (qt, kt, vt)]
+    dout = torch.from_numpy(np.random.default_rng(35).normal(size=qt.shape).astype(np.float32))
+
+    def layer(a, b, c):  # the kernel between two products, as in a model layer
+        return kernel_mod.FlashAttentionFn.apply(a * 1.5, b, c, True, 64, 64) * 2.0
+
+    out = checkpoint(layer, *leaves, use_reentrant=False) if remat else layer(*leaves)
+    got = torch.autograd.grad(out, leaves, dout)
+    want = torch.autograd.grad(mha_plain(leaves[0] * 1.5, leaves[1], leaves[2]) * 2.0, leaves, dout)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=3e-5, atol=3e-5)
+    # under remat the forward runs again in the backward pass, and once each otherwise
+    assert calls == {"forward": 2 if remat else 1, "backward": 1}
+
+
+def test_wkv_gradient_on_a_device_raises_instead_of_cutting_it():
+    """No WKV backward kernel: asked for a gradient off the CPU, the wrapper
+    raises before any launch (a meta tensor stands in for the card here).
+    Without grad mode, or on the CPU, it runs as before."""
+    from repro_torch.kernels.wkv import wkv_cuda, wkv_plain
+
+    r, k, v, wlog = (torch.empty((2, 32, 16), device="meta") for _ in range(4))
+    u = torch.empty(16, device="meta")
+    with pytest.raises(NotImplementedError, match="WKV backward kernel"):
+        wkv_cuda(r.requires_grad_(), k, v, wlog, u, chunk=16)
+    with torch.no_grad(), pytest.raises(ValueError, match="CPU or CUDA"):
+        wkv_cuda(r, k, v, wlog, u, chunk=16)
+    rng = np.random.default_rng(36)
+    cpu = [torch.from_numpy(rng.normal(size=(2, 32, 16)).astype(np.float32)) for _ in range(3)]
+    wl = -torch.from_numpy(np.exp(rng.normal(size=(2, 32, 16))).astype(np.float32))
+    ub = torch.from_numpy(rng.normal(size=16).astype(np.float32))
+    out, _ = wkv_cuda(cpu[0].requires_grad_(), cpu[1], cpu[2], wl, ub, chunk=16)
+    assert out.grad_fn is not None
+    assert torch.equal(out.detach(), wkv_plain(cpu[0].detach(), cpu[1], cpu[2], wl, ub)[0])

@@ -7,9 +7,17 @@ tests/test_torch_gpu.py``.  This file imports neither jax nor ``repro``.
 Tolerances: max abs error f64 1e-10, f32 3e-5, bf16 4e-2; elementwise
 ``|a - b| <= atol + rtol |b|`` besides, for bf16 attention at atol 2e-3,
 rtol 1e-2 (one bf16 ulp is at most 2^-7 |b|) and for WKV at 5e-4, 5e-4
-(the JAX test's rtol = atol).
+(the JAX test's rtol = atol).  The flash backward kernel is held to
+autograd through ``mha_plain`` by ``ATTN_GRAD_RULE`` for bf16,
+``|a - b| <= 2e-3 rms(b) + 1e-2 |b|`` (``chip_smoke.py``; atol in units of
+the gradient's scale; the tensor-core kernels), and by the same form with
+3e-5 and 3e-5 for f32 (the scalar kernels).
+Training on the card is held to the CPU's losses by the training tests'
+``TOL``, atol = rtol = 1e-4.
 """
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import pytest
@@ -17,7 +25,9 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.kernels.attention import flash_attention, flash_attention_cuda, mha_plain
-from repro_torch.kernels.attention.kernel import HEAD_DIMS, TILES
+from repro_torch.data import SyntheticTokenDataset, to_device
+from repro_torch.configs import ARCH_IDS
+from repro_torch.kernels.attention.kernel import HEAD_DIMS, TILES, flash_attention_bwd_cuda
 from repro_torch.kernels.lbm_d3q15 import config_space as lbm_space
 from repro_torch.kernels.lbm_d3q15 import init_fields, lbm_d3q15_cuda, lbm_step, lbm_step_plain
 from repro_torch.kernels.stencil25 import config_space as stencil_space
@@ -30,7 +40,9 @@ from repro_torch.launch.one_card import attention_layers
 from repro_torch.models.layers import attention as model_attention
 from repro_torch.models.registry import build_model
 from repro_torch.models.rwkv6 import wkv_heads
+from repro_torch.optim import make_optimizer
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.train import make_train_step
 
 pytestmark = pytest.mark.gpu
 
@@ -261,3 +273,85 @@ def test_smoke_config_serves_the_same_greedy_tokens_on_the_card_and_the_cpu(cuda
     assert flash_attention_cuda.launches == n + attn_layers
     out = torch.cat([tok, rest], dim=1).to(torch.int32).cpu().numpy()
     np.testing.assert_array_equal(out, ref)
+
+
+GRAD_RULE = {torch.bfloat16: (2e-3, 1e-2), torch.float32: (3e-5, 3e-5)}
+
+
+def _scaled_close(a, b, rule) -> bool:
+    """|a - b| <= atol rms(b) + rtol |b| everywhere."""
+    atol, rtol = rule
+    a, b = a.double(), b.double()
+    return bool(((a - b).abs() <= atol * b.pow(2).mean().sqrt() + rtol * b.abs()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_flash_backward_kernel_matches_autograd_through_the_plain_version(cuda, dtype, d):
+    """Every compiled head dim, four head groupings, causal and not, at
+    S = 256 and at S = 96 (a partial last tile of the backward's 64)."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    for (hq, hkv), s, causal in itertools.product(((4, 4), (4, 2), (8, 1), (10, 2)), (256, 96), (True, False)):
+        q, k, v = (torch.randn((1, h, s, d), generator=gen, device=cuda).to(dtype).requires_grad_()
+                   for h in (hq, hkv, hkv))
+        dout = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
+        tile = (64, 64) if s % 64 == 0 else (32, 32)
+        n = flash_attention_bwd_cuda.launches
+        out = flash_attention_cuda(q, k, v, causal, *tile)
+        assert out.grad_fn is not None
+        got = torch.autograd.grad(out, (q, k, v), dout)
+        assert flash_attention_bwd_cuda.launches == n + 1
+        want = torch.autograd.grad(mha_plain(q, k, v, causal), (q, k, v), dout)
+        for name, g, w in zip("qkv", got, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            assert _scaled_close(g, w, GRAD_RULE[dtype]), (name, hq, hkv, s, causal)
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != "rwkv6-1.6b"])
+def test_smoke_config_trains_to_the_cpus_losses_on_the_card(cuda, arch):
+    """Three AdamW steps of each smoke config with attention (f32, head dim
+    16), from the same parameters and batches on the CPU and on the card;
+    each step on the card launches the flash forward twice a layer (remat)
+    and its backward once."""
+    cfg = get_arch(arch).smoke()
+    ds = SyntheticTokenDataset(cfg.vocab, 64, 2, seed=1, n_frontend_tokens=cfg.n_frontend_tokens,
+                               frontend_dim=cfg.frontend_dim)
+    losses = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, device="cpu", seed=0).to(dev)
+        opt = make_optimizer("adamw")
+        step = make_train_step(model, opt, peak_lr=1e-3)
+        state = opt.init(dict(model.named_parameters()))
+        losses[str(dev)] = []
+        for s in range(3):
+            n, nb = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
+            losses[str(dev)].append(float(step(state, to_device(ds.batch(s), dev))["loss"]))
+            if dev != "cpu":
+                layers = attention_layers(cfg)
+                assert flash_attention_bwd_cuda.launches - nb == layers
+                assert flash_attention_cuda.launches - n == 2 * layers
+    np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-4, atol=1e-4)
+
+
+def test_flash_backward_wrapper_raises_on_what_the_kernels_do_not_take(cuda):
+    q = torch.randn((1, 2, 48, 64), device=cuda).to(torch.bfloat16)
+    lse = torch.zeros((1, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        flash_attention_bwd_cuda(q, q, q, q, lse, q)  # the bf16 kernels step 32 rows
+    q64 = torch.randn((1, 2, 64, 48), device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd_cuda(q64, q64, q64, q64, torch.zeros((1, 2, 64), device=cuda), q64)
+    with pytest.raises(TypeError):
+        flash_attention_bwd_cuda(q, q, q, q, lse.double(), q)
+
+
+def test_rwkv6_gradient_on_the_card_raises(cuda):
+    """No WKV backward kernel yet: training RWKV6 on the card raises where
+    the WKV would be differentiated, and never trains with a cut gradient."""
+    cfg = get_arch("rwkv6-1.6b").smoke()
+    model = build_model(cfg, device=cuda, seed=0)
+    step = make_train_step(model, make_optimizer("adamw"))
+    ds = SyntheticTokenDataset(cfg.vocab, 32, 2, seed=1)
+    state = make_optimizer("adamw").init(dict(model.named_parameters()))
+    with pytest.raises(NotImplementedError, match="WKV backward kernel"):
+        step(state, to_device(ds.batch(0), cuda))

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.attention import flash_attention, flash_attention_cuda
+from repro_torch.kernels.attention.kernel import flash_attention_bwd_cuda
 from repro_torch.kernels.lbm_d3q15 import init_fields, lbm_d3q15_cuda, lbm_step
 from repro_torch.kernels.stencil25 import stencil25, stencil25_cuda
 from repro_torch.kernels.wkv import wkv, wkv_cuda
@@ -63,7 +64,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "repro_torch.configs.rwkv6_1_6b", "repro_torch.models.params",
                  "repro_torch.models.layers", "repro_torch.models.rwkv6",
                  "repro_torch.models.registry", "repro_torch.serve.engine",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.optim.optimizers",
+                 "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+                 "repro_torch.train.step", "repro_torch.train.trainer",
+                 "repro_torch.launch.train"):
         assert name in res["modules"]
 
 
@@ -102,7 +106,8 @@ def test_state_defaults_to_cuda():
 
 
 def _launches():
-    return tuple(fn.launches for fn in (stencil25_cuda, lbm_d3q15_cuda, flash_attention_cuda, wkv_cuda))
+    return tuple(fn.launches for fn in (stencil25_cuda, lbm_d3q15_cuda, flash_attention_cuda,
+                                        flash_attention_bwd_cuda, wkv_cuda))
 
 
 def test_cpu_path_leaves_launch_counters_alone():
@@ -113,6 +118,8 @@ def test_cpu_path_leaves_launch_counters_alone():
     q = torch.ones((1, 2, 64, 32))
     flash_attention(q, q, q)
     flash_attention_cuda(q, q, q, block_q=32, block_kv=64)
+    dq, dk, dv = flash_attention_bwd_cuda(q, q, q, q, torch.zeros(q.shape[:3]), q)
+    assert dq.shape == q.shape and dk.shape == dv.shape == q.shape
     t = torch.full((2, 32, 16), -0.5)
     wkv(t, t, t, t, torch.ones(16))
     wkv_cuda(t, t, t, t, torch.ones(16), chunk=16)
