@@ -51,14 +51,13 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels.attention.kernel import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.wkv.kernel import wkv_cuda  # noqa: E402
-from repro_torch.launch.one_card import one_card_config  # noqa: E402
+from repro_torch.launch.one_card import SERVE_PATHS, SERVE_PROMPT_LEN, SERVE_REQUESTS, one_card_config  # noqa: E402
 from repro_torch.models import build_model, param_count  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
-ARCHS = ("qwen2.5-14b", "rwkv6-1.6b", "stablelm-12b", "musicgen-large", "llava-next-34b", "dbrx-132b",
-         "zamba2-7b")
+ARCHS = tuple(SERVE_PATHS.values())
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-REQUESTS, PROMPT_LEN, STEPS = 4, 512, 8
+REQUESTS, PROMPT_LEN, STEPS = SERVE_REQUESTS, SERVE_PROMPT_LEN, 8
 TRACE = ROOT / "build" / "serve_profile_trace.json"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 PORT_KERNELS = ("flash_tc_kernel", "flash_f32_kernel", "wkv_kernel")  # in the trace's kernel names

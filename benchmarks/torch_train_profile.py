@@ -47,12 +47,12 @@ import torch_serve_profile as serve_profile  # noqa: E402
 from repro_torch.configs import SHAPES, get_arch  # noqa: E402
 from repro_torch.data import SyntheticTokenDataset, to_device  # noqa: E402
 from repro_torch.kernels.attention.kernel import flash_attention_bwd_cuda, flash_attention_cuda  # noqa: E402
-from repro_torch.launch.one_card import one_card_train_shape  # noqa: E402
+from repro_torch.launch.one_card import TRAIN_ARCH, TRAIN_SHAPE, one_card_train_shape  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim import clip_by_global_norm, make_optimizer, wsd_schedule  # noqa: E402
 from repro_torch.train import make_train_step  # noqa: E402
 
-ARCH, SHAPE = "olmo-1b", "train_4k"
+ARCH, SHAPE = TRAIN_ARCH, TRAIN_SHAPE
 WARMUP, STEPS = 2, 3
 TRACE = ROOT / "build" / "train_profile_trace.json"
 PRODUCTS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")

@@ -107,7 +107,21 @@ line each:
    through the plain version, by ``ATTN_GRAD_RULE``, and timed with the
    forward, the plain version's backward and SDPA's.  Prints the warm
    median step, tokens per second, peak memory, the disk's free space and
-   the checkpoint's snapshot, write and restore seconds.
+   the checkpoint's snapshot, write and restore seconds;
+9. step_time — the whole-model estimator, ``repro_torch.graph.step_time``
+   on ``"h100"``, for each full-width path above with that path's own
+   config (its depth cut included), batch, sequence and kind: the seven
+   serve paths' prefills (batch 4, seq 512, ``forward``) and ``train_olmo``
+   (batch 4, seq 4096, ``train``).  One line a path: the predicted step, the
+   step the phase above measured (the serve phase's prefill, which is cold:
+   the first of its run; the training step's warm median), their ratio, the
+   host seconds of the call, the node and unique-kernel counts, the limiter
+   attribution and the predicted seconds by node class.  Fails only if
+   ``step_time`` raises, a prediction is not finite and positive, or the
+   single-device makespan is not exactly the node durations folded in
+   schedule order.  A prediction far from the card is what the phase
+   records, not a failure (``benchmarks/torch_step_time_check.py`` sets
+   each prediction beside a warm step, class by class).
 
 Then the ``nvidia-smi`` line, a ``kernels`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line, on
@@ -152,6 +166,8 @@ from repro_torch.configs import SHAPES, get_arch  # noqa: E402
 from repro_torch.launch import one_card  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.data import SyntheticTokenDataset  # noqa: E402
+from repro_torch.graph import classes as graph_classes  # noqa: E402
+from repro_torch.graph import step_time  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.train import trainer as train_trainer  # noqa: E402
@@ -199,8 +215,8 @@ F32_GRAD_RULE = (3e-5, 3e-5)
 ATTN_BWD_CHECK_SEQS = (256, 96)  # 96: a partial last tile of the backward's 64
 ATTN_BWD_GQA_SHAPES = ((1, 40, 8, 2048, 128), (1, 16, 16, 4096, 128))  # Qwen2.5-14B's group; OLMo-1B
 # train_olmo: the run, its fault and its one-card cut
-TRAIN_ARCH = "olmo-1b"
-TRAIN_SHAPE = "train_4k"
+TRAIN_ARCH = one_card.TRAIN_ARCH
+TRAIN_SHAPE = one_card.TRAIN_SHAPE
 TRAIN_STEPS = 6
 TRAIN_CKPT_EVERY = 3
 TRAIN_FAULT_STEP = 4
@@ -218,15 +234,11 @@ WKV_SCALED_RULE = (5e-4, 5e-4)
 WKV_CHECK_HEADS = 3  # heads of the per-head bonus in the check phase: BH = 6
 MODEL_CHECK_SEQ = 100  # the model's kernel calls padded: to 128 (attention), 112 (WKV)
 SERVE = {  # main path: (config, the kernel its prefill must launch once per attention or WKV layer)
-    "serve_qwen": ("qwen2.5-14b", "flash_attention"),
-    "serve_rwkv": ("rwkv6-1.6b", "wkv"),
-    "serve_stablelm": ("stablelm-12b", "flash_attention"),
-    "serve_musicgen": ("musicgen-large", "flash_attention"),
-    "serve_llava": ("llava-next-34b", "flash_attention"),
-    "serve_dbrx": ("dbrx-132b", "flash_attention"),
-    "serve_zamba2": ("zamba2-7b", "flash_attention"),
+    path: (arch, "wkv" if get_arch(arch).family == "ssm" else "flash_attention")
+    for path, arch in one_card.SERVE_PATHS.items()
 }
-SERVE_SHAPE = {"requests": 4, "prompt_len": 512, "steps": 16}
+SERVE_SHAPE = {"requests": one_card.SERVE_REQUESTS, "prompt_len": one_card.SERVE_PROMPT_LEN, "steps": 16}
+STEP_TIME_MACHINE = "h100"  # the whole-model estimator's model of the card
 # text tokens after the frontend's stub embeddings (n_frontend_tokens of
 # frontend_dim) in the forward of a served config with a frontend
 FRONTEND_TEXT_TOKENS = 256
@@ -1285,6 +1297,45 @@ def phase_train_olmo() -> dict:
     return res
 
 
+def phase_step_time(served: dict, train: dict) -> list[dict]:
+    """``step_time``: the whole-model estimator's prediction of every
+    full-width path's step beside the step the phases above measured, as
+    the module docstring says."""
+    runs = [(path, *one_card.one_card_config(SERVE[path][0]), SERVE_SHAPE["requests"],
+             SERVE_SHAPE["prompt_len"], "forward", res["prefill_ms"],
+             "prefill, cold: the serve phase's first (CUDA events)")
+            for path, res in served.items()]
+    runs.append(("train_olmo", get_arch(TRAIN_ARCH), train["reduced"], train["global_batch"],
+                 train["seq_len"], "train", train["step_ms_warm_median"],
+                 "warm median step (host clock after synchronize)"))
+    rows, bad = [], []
+    for path, cfg, reduced, batch, seq, kind, measured_ms, how in runs:
+        t0 = time.perf_counter()
+        try:
+            rep = step_time(cfg, STEP_TIME_MACHINE, batch=batch, seq=seq, kind=kind)
+        except Exception as e:  # noqa: BLE001 - any failure of the estimator fails the phase
+            fail(f"step_time: {path}: step_time raised {e!r}")
+        host_s = time.perf_counter() - t0
+        predicted, fold = rep.step_time_s, graph_classes.schedule_sum(rep)
+        row = {"phase": "step_time", "path": path, "arch": cfg.name, "reduced": reduced, "batch": batch,
+               "seq": seq, "kind": kind, "machine": rep.machine.name, "predicted_s": predicted,
+               "measured_s": measured_ms / 1e3, "measured": how,
+               "predicted_over_measured": predicted / (measured_ms / 1e3), "step_time_host_s": host_s,
+               "n_nodes": len(rep.dag), "n_unique_kernels": len(rep.unique),
+               "limiters": rep.limiter_attribution(),
+               "predicted_by_class_s": graph_classes.predicted_by_class(rep),
+               "n_devices": rep.dag.mesh.n_devices, "schedule_sum_s": fold}
+        emit(row)
+        rows.append(row)
+        if not (math.isfinite(predicted) and predicted > 0):
+            bad.append(f"{path}: the prediction {predicted} is not finite and positive")
+        if rep.dag.mesh.n_devices == 1 and predicted != fold:
+            bad.append(f"{path}: the single-device makespan {predicted!r} is not the durations' sum {fold!r}")
+    if bad:
+        fail(f"step_time: {'; '.join(bad)}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1300,6 +1351,7 @@ def main() -> int:
     main_results += [phase_main_attention(), phase_main_wkv()]
     served = {path: phase_main_serve(path) for path in SERVE}
     train = phase_train_olmo()
+    phase_step_time(served, train)
     for r in main_results:  # launches over every main path that runs the kernel
         r["launches_by_path"] = {OWN_PATH[r["name"]]: r["launches"]}
         for path, res in served.items():

@@ -21,17 +21,24 @@ operation for operation so that results stay bit-identical to it:
   equal the reference's and the float assembly is the same
   :func:`_estimate_one`, so its results equal :func:`estimate`'s bit for bit.
 
-``tests/test_torch_estimator.py`` and ``tests/test_torch_estimate_many.py``
-hold both `==` to ``repro.core``.  The JAX package's multi-machine batch
-(``estimate_many_machines``), its ``GPUAnalyticEstimator`` and its
-observability spans are not part of the port.
+:class:`GPUAnalyticEstimator` puts :func:`estimate_many` and the model's
+prediction behind the ``estimate_batch`` protocol of ``core/record.py``; the
+whole-model estimator (``repro_torch.graph``) prices its kernels through it.
+
+``tests/test_torch_estimator.py``, ``tests/test_torch_estimate_many.py`` and
+``tests/test_torch_graph.py`` hold all three `==` to ``repro.core``.  The JAX
+package's multi-machine batch (``estimate_many_machines``,
+``estimate_batch_machines``) is not part of the port: ``estimate_batch``
+does not reach it.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Sequence
 
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from . import footprint as fp_enum
 from . import symset as fp_sym
 from .address import KernelSpec, ThreadBox
@@ -512,3 +519,60 @@ def estimate_many(
             spec = build(**item)
         out.append(_estimate_one(spec, machine, fits, method, prims))
     return out
+
+
+class GPUAnalyticEstimator:
+    """The paper-§III pipeline behind the backend-agnostic
+    :class:`~repro_torch.core.record.Estimator` protocol.
+
+    ``estimate_batch`` consumes element-granular
+    :class:`~repro_torch.frontend.ir.AccessIR` objects (lowering each to a
+    :class:`KernelSpec`), runs the batched :func:`estimate_many` plus the
+    multi-limiter prediction, and returns
+    :class:`~repro_torch.core.record.EstimateRecord` rows stamped with
+    ``{"name": ir.name, **ir.meta}``.
+    """
+
+    backend = "gpu"
+
+    def __init__(self, method: str = "sym", fits: CapacityFits | None = None):
+        _footprint_fns(method)  # validate eagerly, not at first batch
+        self.method = method
+        self.fits = fits
+
+    def estimate_batch(
+        self,
+        irs: Sequence,
+        machine: GPUMachine,
+        *,
+        cache: EstimateCache | None = None,
+    ) -> list:
+        # deferred: model/record import estimator, so top-level imports would cycle
+        from ..frontend.lower import lower_gpu
+        from .model import predict
+        from .record import gpu_record
+
+        fits = self.fits if self.fits is not None else machine.fits
+        irs = list(irs)
+        if cache is None:
+            cache = EstimateCache()
+        h0, m0 = cache.hits, cache.misses
+        with obs_trace.span(
+            "estimate.batch", backend="gpu", machine=machine.name, size=len(irs)
+        ) as sp:
+            ready = [lower_gpu(ir) for ir in irs]
+            ests = estimate_many(ready, machine, fits, method=self.method, cache=cache)
+            out = [
+                gpu_record({"name": ir.name, **ir.meta}, est, predict(spec, est, machine), machine)
+                for ir, spec, est in zip(irs, ready, ests)
+            ]
+            sp.set(cache_hits=cache.hits - h0, cache_misses=cache.misses - m0)
+        obs_metrics.histogram("estimate.batch_size", backend="gpu").observe(len(irs))
+        obs_metrics.histogram("estimate.batch_seconds", backend="gpu").observe(
+            sp.duration_s
+        )
+        obs_metrics.counter("estimate.cache_hits", backend="gpu").inc(cache.hits - h0)
+        obs_metrics.counter("estimate.cache_misses", backend="gpu").inc(
+            cache.misses - m0
+        )
+        return out

@@ -19,10 +19,14 @@ GPU (paper §III estimator):
   @ 1.98 GHz boost, L1 256 kB, L2 50 MB, HBM3 ~3.0 TB/s (STREAM scale),
   64 FP64 lanes/SM.
 
-``MACHINES`` / ``get_machine`` form the registry used by block selection;
-lookups are case- and
-punctuation-insensitive (``"a100"``, ``"A100-40GB"`` and ``"a100_40gb"`` all
-resolve to the same entry).
+``MACHINES`` / ``get_machine`` form the registry used by block selection
+and by the whole-model estimator (``repro_torch.graph``); lookups are case-
+and punctuation-insensitive (``"a100"``, ``"A100-40GB"`` and ``"a100_40gb"``
+all resolve to the same entry).  A TPU name raises ``NotImplementedError``:
+the port has no TPU machine models (ROADMAP Queue 1 item 10).
+
+``MeshSpec`` is the jax-free device-mesh geometry the whole-model replay
+reads; the port keeps its GPU bandwidths only.
 """
 from __future__ import annotations
 
@@ -143,12 +147,22 @@ def _lookup() -> dict[str, str]:
     return table
 
 
+# the JAX package's TPU registry keys and model names, normalized
+TPU_MACHINE_NAMES = ("tpuv5e", "tpuv6e")
+
+
 def canonical_machine_name(name: str) -> str:
     """Registry key for any accepted spelling (``"a100"`` -> ``"A100"``)."""
     from .suggest import unknown_name_message
 
     key = _lookup().get(_norm(name))
     if key is None:
+        if _norm(name) in TPU_MACHINE_NAMES:
+            raise NotImplementedError(
+                f"machine {name!r} is a TPU: the port has no TPU backend "
+                "(core/tpu_estimator and a counterpart of frontend/pallas; "
+                "ROADMAP Queue 1 item 10)"
+            )
         raise KeyError(unknown_name_message("machine", name, MACHINES))
     return key
 
@@ -157,3 +171,40 @@ def get_machine(name: str) -> GPUMachine:
     """Resolve a machine by registry key, full model name, or any
     case/punctuation variant thereof; unknown names get a did-you-mean."""
     return MACHINES[canonical_machine_name(name)]
+
+
+def gpu_machines() -> dict[str, GPUMachine]:
+    return {k: m for k, m in MACHINES.items() if isinstance(m, GPUMachine)}
+
+
+@dataclass(frozen=True)
+class MeshSpec:
+    """Logical device mesh (axis name -> size)."""
+
+    axes: tuple[tuple[str, int], ...]
+    inter_pod_axes: tuple[str, ...] = ("pod",)
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for _, s in self.axes:
+            n *= s
+        return n
+
+    def axis_size(self, name: str) -> int:
+        for a, s in self.axes:
+            if a == name:
+                return s
+        raise KeyError(name)
+
+    def bandwidth(self, name: str, machine: GPUMachine) -> float:
+        """Per-device collective bandwidth on one mesh axis: NVLink within a
+        node, the NIC across nodes (the pod axis)."""
+        if name in self.inter_pod_axes:
+            return machine.bw_inter_node
+        return machine.bw_link
+
+
+SINGLE_DEVICE_MESH = MeshSpec(axes=(("data", 1), ("model", 1)))
+SINGLE_POD_MESH = MeshSpec(axes=(("data", 16), ("model", 16)))
+MULTI_POD_MESH = MeshSpec(axes=(("pod", 2), ("data", 16), ("model", 16)))

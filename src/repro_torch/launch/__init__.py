@@ -1,2 +1,3 @@
-"""Entry points of the port: serving (``serve``) and what of a config one
-card holds (``one_card``)."""
+"""Entry points of the port: serving (``serve``), training (``train``),
+what of a config one card holds (``one_card``), and the device-mesh
+spellings the whole-model estimator reads (``mesh``)."""

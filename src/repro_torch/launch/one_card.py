@@ -24,10 +24,19 @@ from __future__ import annotations
 
 import dataclasses
 
-from ..configs import ArchConfig, ShapeConfig, get_arch
+from ..configs import SHAPES, ArchConfig, ShapeConfig, get_arch
 
 ONE_CARD_LAYERS = {"llava-next-34b": 24, "dbrx-132b": 4}
 ONE_CARD_TRAIN_BATCH = 4
+# the full-width paths one card runs: each served config's prefill of
+# SERVE_REQUESTS prompts of SERVE_PROMPT_LEN, and one training step
+SERVE_PATHS = {
+    "serve_qwen": "qwen2.5-14b", "serve_rwkv": "rwkv6-1.6b", "serve_stablelm": "stablelm-12b",
+    "serve_musicgen": "musicgen-large", "serve_llava": "llava-next-34b", "serve_dbrx": "dbrx-132b",
+    "serve_zamba2": "zamba2-7b",
+}
+SERVE_REQUESTS, SERVE_PROMPT_LEN = 4, 512
+TRAIN_PATH, TRAIN_ARCH, TRAIN_SHAPE = "train_olmo", "olmo-1b", "train_4k"
 
 
 def one_card_config(arch: str) -> tuple[ArchConfig, dict]:
@@ -58,3 +67,13 @@ def one_card_train_shape(shape: ShapeConfig) -> tuple[ShapeConfig, dict]:
     if kept == shape.global_batch:
         return shape, {}
     return dataclasses.replace(shape, global_batch=kept), {"global_batch": [kept, shape.global_batch]}
+
+
+def full_width_paths() -> dict[str, tuple[str, int, int, str]]:
+    """path -> (arch, batch, seq, kind) of every full-width path: the
+    prefills at ``forward``, the training step at ``train`` on the one-card
+    cut of ``TRAIN_SHAPE``."""
+    out = {path: (arch, SERVE_REQUESTS, SERVE_PROMPT_LEN, "forward") for path, arch in SERVE_PATHS.items()}
+    shape, _ = one_card_train_shape(SHAPES[TRAIN_SHAPE])
+    out[TRAIN_PATH] = (TRAIN_ARCH, shape.global_batch, shape.seq_len, "train")
+    return out

@@ -14,8 +14,17 @@ then describe the same model.  ``jax.random`` and ``torch.Generator`` give
 different numbers from one seed, so the tests carry the JAX package's tree
 across with ``convert.lm_params`` instead.
 
-The logical specs are kept for the port of the sharding rules (ROADMAP
-Queue 1 item 5); on one device nothing reads them.
+Logical axis names used in specs:
+  * ``fsdp``  — ZeRO-3 style parameter sharding axis (maps to ('pod','data') / ('data',))
+  * ``tp``    — tensor-parallel axis (maps to 'model')
+  * ``dp``    — batch axis for activations (maps to ('pod','data'))
+  * ``sp``    — sequence-parallel axis (maps to 'model' on long-context shapes)
+
+:class:`ShardingRules` is the logical-to-mesh-axis table; the whole-model
+estimator (``repro_torch.graph``) reads it to shard its traced shapes.  The
+JAX package's ``ShardingRules.translate`` builds a jax ``PartitionSpec`` and
+waits, with the DTensor placements, for ROADMAP Queue 1 item 7; on one
+device nothing reads the specs.
 """
 from __future__ import annotations
 
@@ -52,6 +61,23 @@ class ParamDef:
             return torch.ones(self.shape, dtype=dtype, device=device)
         out = torch.randn(self.shape, generator=generator, dtype=torch.float32, device=device)
         return out.mul_(self.std).to(dtype)
+
+
+@dataclass(frozen=True)
+class ShardingRules:
+    """Logical -> physical mesh-axis translation."""
+
+    fsdp: tuple[str, ...] | str | None = ("data",)
+    tp: tuple[str, ...] | str | None = "model"
+    dp: tuple[str, ...] | str | None = ("data",)
+    sp: tuple[str, ...] | str | None = None  # sequence parallel (long context)
+    ep: tuple[str, ...] | str | None = None  # expert parallel (hillclimb variant)
+
+
+SINGLE_POD_RULES = ShardingRules(fsdp=("data",), tp="model", dp=("data",))
+MULTI_POD_RULES = ShardingRules(
+    fsdp=("pod", "data"), tp="model", dp=("pod", "data")
+)
 
 
 def is_def(x) -> bool:

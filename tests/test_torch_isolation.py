@@ -1,11 +1,12 @@
 """The port stands alone and never falls back silently.
 
 * Importing every ``repro_torch`` module, ``chip_smoke.py``,
-  ``benchmarks/torch_rank_check.py`` or ``benchmarks/torch_ranking_host.py``
-  loads no ``jax`` and nothing of ``repro`` (checked in a fresh interpreter).
+  ``benchmarks/torch_rank_check.py``, ``benchmarks/torch_ranking_host.py``
+  or ``benchmarks/torch_step_time_check.py`` loads no ``jax`` and nothing of
+  ``repro`` (checked in a fresh interpreter).
 * Without CUDA, the state-creating functions raise unless asked for the CPU,
-  ``chip_smoke.py`` and the rank check exit non-zero and print no result,
-  and the CPU path
+  ``chip_smoke.py``, the rank check and the step-time check exit non-zero
+  and print no result, and the CPU path
   leaves the kernels' launch counters alone.
 """
 from __future__ import annotations
@@ -67,11 +68,19 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "repro_torch.launch.serve", "repro_torch.optim.optimizers",
                  "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
                  "repro_torch.train.step", "repro_torch.train.trainer",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train", "repro_torch.launch.mesh",
+                 "repro_torch.core.record", "repro_torch.core.hlo_analysis",
+                 "repro_torch.frontend.builders", "repro_torch.models.shardctx",
+                 "repro_torch.obs.metrics", "repro_torch.obs.trace",
+                 "repro_torch.explore.registry", "repro_torch.explore.study",
+                 "repro_torch.explore.cli", "repro_torch.graph.dag",
+                 "repro_torch.graph.kernels", "repro_torch.graph.frontend",
+                 "repro_torch.graph.replay", "repro_torch.graph.study",
+                 "repro_torch.graph.classes"):
         assert name in res["modules"]
 
 
-@pytest.mark.parametrize("script", ["torch_rank_check", "torch_ranking_host"])
+@pytest.mark.parametrize("script", ["torch_rank_check", "torch_ranking_host", "torch_step_time_check"])
 def test_paper_path_benchmarks_import_no_jax_and_no_repro(script):
     """``benchmarks/<script>.py``, imported alone."""
     probe = (f"import json, sys; sys.path.insert(0, 'benchmarks'); import {script}; "
@@ -92,6 +101,18 @@ def test_rank_check_fails_without_cuda():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode != 0 and out.stdout == ""
+
+
+def test_step_time_check_fails_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the step-time check would run")
+    out_file = tmp_path / "out.json"
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "benchmarks" / "torch_step_time_check.py"), "--out", str(out_file)],
+        env=_env(), cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0 and out.stdout == ""
+    assert not out_file.exists()
 
 
 def test_state_defaults_to_cuda():
