@@ -6,18 +6,18 @@
 Needs an NVIDIA card and the CUDA toolkit (the port's kernels build on first
 use).  For each full-width path of ``chip_smoke.py`` (``serve_qwen``,
 ``serve_rwkv``, ``serve_stablelm``, ``serve_musicgen``, ``serve_llava``,
-``serve_dbrx``, ``serve_zamba2``, ``train_olmo``), or for the paths named on
-the command line, it:
+``serve_dbrx``, ``serve_zamba2``, ``train_olmo``, ``train_rwkv``), or for the
+paths named on the command line, it:
 
 * predicts the step with ``repro_torch.graph.step_time`` on ``"h100"`` with
   the path's own config (LLaVA-NeXT-34B and DBRX-132B at the depth one card
   holds, ``repro_torch.launch.one_card``), batch, sequence and kind: a
-  prefill of 4 prompts of 512 tokens (``forward``), or OLMo-1B's training
-  step at batch 4 of 4096 tokens (``train``);
+  prefill of 4 prompts of 512 tokens (``forward``), or OLMo-1B's or
+  RWKV6-1.6B's training step at batch 4 of 4096 tokens (``train``);
 * takes the warm step on the card.  A serve path builds the model as
   ``benchmarks/torch_serve_profile.py`` does, runs one prefill to warm up,
   then times ``REPS`` prefills with CUDA events (its ``events_ms``).  The
-  train path sets up as ``benchmarks/torch_train_profile.py`` does (AdamW,
+  train paths set up as ``benchmarks/torch_train_profile.py`` does (AdamW,
   ``make_train_step``) and times its ``STEPS`` steps after its ``WARMUP``;
 * traces one more under ``torch.profiler`` and sums the device time by the
   DAG's node classes (``repro_torch.graph.classes``; each Mamba2 scan runs
@@ -156,8 +156,8 @@ def check_serve(path: str) -> dict:
                 f"warm prefill of {batch} x {seq}, median of {REPS}, CUDA events", events, summary)
 
 
-def check_train() -> dict:
-    cfg = get_arch(train_profile.ARCH)
+def check_train(path: str) -> dict:
+    cfg = get_arch(PATHS[path][0])
     shape, reduced = one_card_train_shape(SHAPES[train_profile.SHAPE])
     rep, host_s = predict(cfg, shape.global_batch, shape.seq_len, "train")
     model = build_model(cfg, device="cuda", seed=0)
@@ -172,7 +172,7 @@ def check_train() -> dict:
     torch.cuda.synchronize()
     step_ms = [serve_profile.events_ms(lambda b=b: step(state, b)) for b in batches[train_profile.WARMUP:n]]
     prof, events, summary = traced(lambda: step(state, batches[-1]), record_shapes=True)
-    res = line("train_olmo", cfg, reduced, shape.global_batch, shape.seq_len, "train", rep, host_s, step_ms,
+    res = line(path, cfg, reduced, shape.global_batch, shape.seq_len, "train", rep, host_s, step_ms,
                f"warm step, median of {train_profile.STEPS} after {train_profile.WARMUP}, CUDA events",
                events, summary)
     res["device_ms_by_kind"] = train_profile.device_ms_by_kind(prof, cfg.vocab)
@@ -196,7 +196,7 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     rows = []
     for path in args.paths or PATHS:
-        rows.append(check_train() if path == "train_olmo" else check_serve(path))
+        rows.append(check_train(path) if PATHS[path][3] == "train" else check_serve(path))
         print(json.dumps(rows[-1]), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()

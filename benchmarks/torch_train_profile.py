@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Where a training step's time goes on the card: OLMo-1B at full width,
-one warm step traced with ``torch.profiler``.
+"""Where a training step's time goes on the card: a trained config at full
+width, one warm step traced with ``torch.profiler``.
 
-    python3 benchmarks/torch_train_profile.py
+    python3 benchmarks/torch_train_profile.py [ARCH]
 
-Needs an NVIDIA card and the CUDA toolkit (the port's kernels build on first
-use).  It builds OLMo-1B (``configs/olmo_1b.py``: 16 layers, d 2048, f32
-parameters, bf16 compute, remat) with ``repro_torch.models.build_model``
-from seed 0, and trains it with ``repro_torch.train.make_train_step`` and
-AdamW at ``train_4k``'s sequence of 4096 and the one-card batch of 4
-(``repro_torch.launch.one_card``), the shape of ``chip_smoke.py``'s
-``train_olmo``.  After two warm-up steps it:
+``ARCH`` is one of the configs ``chip_smoke.py`` trains
+(``repro_torch.launch.one_card.TRAIN_PATHS``): ``olmo-1b`` (the default;
+``configs/olmo_1b.py``: 16 layers, d 2048) or ``rwkv6-1.6b``
+(``configs/rwkv6_1_6b.py``: 24 layers, d 2048, the WKV in f32).  Needs an
+NVIDIA card and the CUDA toolkit (the port's kernels build on first use).
+It builds the config (f32 parameters, bf16 compute, remat) with
+``repro_torch.models.build_model`` from seed 0, and trains it with
+``repro_torch.train.make_train_step`` and AdamW at ``train_4k``'s sequence
+of 4096 and the one-card batch of 4 (``repro_torch.launch.one_card``), the
+shape of ``chip_smoke.py``'s ``train_olmo`` and ``train_rwkv``.  After two
+warm-up steps it:
 
 * times ``STEPS`` steps with CUDA events, no profiler, each one also split
   into its forward and loss, its backward, the clipping and the optimizer
@@ -19,17 +23,18 @@ AdamW at ``train_4k``'s sequence of 4096 and the one-card batch of 4
   shapes) and reads from it the device's busy time and idle share
   (``torch_serve_profile.read_trace``), the kernels by time and the
   launches, and the device time by kind: the f32 head (every product with
-  the vocabulary of 50,304 in its shapes: the logits and their two
-  gradient products), the other products (bf16), casts and copies (the
-  optimizer's copies into the parameters among them), and the flash
-  forward and backward kernels.  The clipping's and the optimizer's times
-  are the split's.
+  the vocabulary in its shapes: the logits and their two gradient
+  products), the other products (bf16), casts and copies (the optimizer's
+  copies into the parameters among them), the flash forward and backward
+  kernels, and the WKV forward and backward kernels.  The clipping's and the
+  optimizer's times are the split's.
 
 One JSON line, then the card's name and power limit.  Nothing is written
 outside ``build/`` (the trace, deleted after reading).
 """
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -47,17 +52,21 @@ import torch_serve_profile as serve_profile  # noqa: E402
 from repro_torch.configs import SHAPES, get_arch  # noqa: E402
 from repro_torch.data import SyntheticTokenDataset, to_device  # noqa: E402
 from repro_torch.kernels.attention.kernel import flash_attention_bwd_cuda, flash_attention_cuda  # noqa: E402
-from repro_torch.launch.one_card import TRAIN_ARCH, TRAIN_SHAPE, one_card_train_shape  # noqa: E402
+from repro_torch.kernels.wkv.kernel import wkv_bwd_cuda, wkv_cuda  # noqa: E402
+from repro_torch.launch.one_card import TRAIN_PATHS, TRAIN_SHAPE, one_card_train_shape  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim import clip_by_global_norm, make_optimizer, wsd_schedule  # noqa: E402
 from repro_torch.train import make_train_step  # noqa: E402
 
-ARCH, SHAPE = TRAIN_ARCH, TRAIN_SHAPE
+SHAPE = TRAIN_SHAPE
 WARMUP, STEPS = 2, 3
 TRACE = ROOT / "build" / "train_profile_trace.json"
 PRODUCTS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
 CASTS = ("aten::_to_copy", "aten::copy_")
-KINDS = ("head_f32", "products_bf16", "casts_copies", "flash_forward", "flash_backward")
+KINDS = ("head_f32", "products_bf16", "casts_copies", "flash_forward", "flash_backward", "wkv_forward",
+         "wkv_backward")
+COUNTERS = {"flash_launches": flash_attention_cuda, "flash_bwd_launches": flash_attention_bwd_cuda,
+            "wkv_launches": wkv_cuda, "wkv_bwd_launches": wkv_bwd_cuda}
 
 
 def device_ms_by_kind(prof, vocab: int) -> dict:
@@ -76,14 +85,21 @@ def device_ms_by_kind(prof, vocab: int) -> dict:
             out["flash_backward"] += self_ms
         elif "flash_tc_kernel" in e.key or "flash_f32_kernel" in e.key:
             out["flash_forward"] += self_ms
+        elif "wkv_bwd_" in e.key:
+            out["wkv_backward"] += self_ms
+        elif "wkv_kernel" in e.key:
+            out["wkv_forward"] += self_ms
     return out
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("arch", nargs="?", default="olmo-1b", choices=sorted(TRAIN_PATHS.values()))
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_train_profile: needs a CUDA card", file=sys.stderr)
         return 1
-    cfg = get_arch(ARCH)
+    cfg = get_arch(args.arch)
     shape, reduced = one_card_train_shape(SHAPES[SHAPE])
     model = build_model(cfg, device="cuda", seed=0)
     adamw = make_optimizer("adamw")
@@ -115,7 +131,7 @@ def main() -> int:
                      (events[i].elapsed_time(events[i + 1]) for i in range(4))))
     del grads, loss
 
-    counts = (flash_attention_cuda.launches, flash_attention_bwd_cuda.launches)
+    counts = {name: counter.launches for name, counter in COUNTERS.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
         step(state, batches[-1])
         torch.cuda.synchronize()
@@ -131,8 +147,7 @@ def main() -> int:
         "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
         "tokens_per_s": shape.global_batch * shape.seq_len / statistics.median(step_ms) * 1e3,
         "split_ms": split, "max_memory_allocated": torch.cuda.max_memory_allocated(),
-        "flash_launches": flash_attention_cuda.launches - counts[0],
-        "flash_bwd_launches": flash_attention_bwd_cuda.launches - counts[1],
+        **{name: counter.launches - counts[name] for name, counter in COUNTERS.items()},
         "device_ms_by_kind": by_kind,
         **trace}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

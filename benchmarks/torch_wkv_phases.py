@@ -69,7 +69,7 @@ def build(name: str, src: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     lib.wkv_launch.restype = ctypes.c_int
     lib.wkv_launch.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4
         + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     return lib
@@ -87,8 +87,8 @@ def main() -> int:
     wlog = -torch.exp(torch.randn(SHAPE, generator=gen, device="cuda").clamp(-8, 4))
     u = torch.randn((kd,), generator=gen, device="cuda")
     out, state = torch.empty_like(r), torch.empty((bh, kd, kd), device="cuda")
-    # one u for all rows (u_rows = 1), zero initial state (s0 null)
-    ptrs = [t.data_ptr() for t in (r, k, v, wlog, u)] + [1, None, out.data_ptr(), state.data_ptr()]
+    # one u for all rows (u_rows = 1), zero initial state (s0 null), no chunk-start states
+    ptrs = [t.data_ptr() for t in (r, k, v, wlog, u)] + [1, None, out.data_ptr(), state.data_ptr(), None]
     for chunk in CHUNKS:
         row = {"chunk": chunk, "shape": SHAPE}
         for name, lib in (("ms", plain), ("clocked_ms", clocked)):

@@ -9,11 +9,11 @@ chosen hand-written CUDA kernel runs; and every configuration it ranks,
 timed, to check its ranking.  Beside it, GQA flash attention at
 Qwen2.5-14B's width and the chunked RWKV6 WKV at RWKV6-1.6B's width, each
 with the tile or chunk fixed by measurement, and one model of every family
-served at full width, and OLMo-1B trained at full width.  Phases, one JSON
-line each:
+served at full width, and OLMo-1B and RWKV6-1.6B trained at full width.
+Phases, one JSON line each:
 
 1. device  — the card, its count, and ``nvidia-smi``'s name and power limit;
-2. build   — the five kernels built from ``src/repro_torch/csrc`` (one
+2. build   — the six kernels built from ``src/repro_torch/csrc`` (one
    ``nvcc`` each, and one for each of the stencil probe's three variants,
    all started together), with build seconds, registers and spills per
    thread of every instantiation (the staged and the direct stencil kernel
@@ -40,11 +40,16 @@ line each:
    128), and OLMo-1B's shape, (1, 16, 16, 4096, 128), against autograd
    through the plain version, with the plain version's own f32 reading
    against its f64 one and the backward's time against its bound and SDPA's
-   backward.  Limits: max abs error f64 1e-10, f32
+   backward.  The WKV backward kernel at every compiled (chunk, K), with a
+   bonus per head, an initial state and the final state's gradient given,
+   at S = 1024, all six gradients (dr, dk, dv, dwlog, du, ds0) against
+   autograd through the plain version, with the plain version's own f32
+   reading against its f64 one.  Limits: max abs error f64 1e-10, f32
    3e-5, bf16 4e-2, and elementwise ``|a - b| <= atol + rtol |b|`` for bf16
    attention (``ATTN_RULE``) and WKV (``WKV_RULE``), and
    ``|a - b| <= atol rms(b) + rtol |b|`` for the attention gradients
-   (``ATTN_GRAD_RULE``; ``F32_GRAD_RULE`` in f32);
+   (``ATTN_GRAD_RULE``; ``F32_GRAD_RULE`` in f32) and the WKV gradients
+   (``WKV_GRAD_RULE``);
 4. main    — ``stencil25(src)`` at (512, 512, 640) f64 and ``lbm_step`` at
    (256, 256, 512) f64, each with ``block=None``; then ``flash_attention``
    at (B, Hq, Hkv, S, D) = (1, 40, 8, 4096, 128) bf16 causal and ``wkv`` at
@@ -107,16 +112,30 @@ line each:
    through the plain version, by ``ATTN_GRAD_RULE``, and timed with the
    forward, the plain version's backward and SDPA's.  Prints the warm
    median step, tokens per second, peak memory, the disk's free space and
-   the checkpoint's snapshot, write and restore seconds;
+   the checkpoint's snapshot, write and restore seconds.  Then
+   ``train_rwkv``: ``Trainer.fit`` on RWKV6-1.6B at full width and depth
+   (24 layers, d 2048, 32 heads of 64, f32 parameters and AdamW moments,
+   bf16 compute, the WKV in f32, remat) at the same cut of ``train_4k``, 4
+   steps from seed 0, its checkpoints left out (the fault and the restore
+   are ``train_olmo``'s).  Fails unless every loss and gradient norm is
+   finite, nothing restarts, and every step launches the WKV forward twice
+   a layer (remat), its backward once a layer and no flash kernel.  The
+   first layer's (r, k, v, wlog, u) and dO of the first step are held,
+   backward kernel against autograd through the stepwise plain version on
+   32 rows and against ``wkv_bwd_plain`` on every row, by
+   ``WKV_GRAD_RULE``, both also read against an f64 run; two launches must
+   give the same bits, and the backward is timed against its bound; warm
+   median step, tokens per second, peak memory;
 9. step_time — the whole-model estimator, ``repro_torch.graph.step_time``
    on ``"h100"``, for each full-width path above with that path's own
    config (its depth cut included), batch, sequence and kind: the seven
-   serve paths' prefills (batch 4, seq 512, ``forward``) and ``train_olmo``
-   (batch 4, seq 4096, ``train``).  One line a path: the predicted step, the
-   step the phase above measured (the serve phase's prefill, which is cold:
-   the first of its run; the training step's warm median), their ratio, the
-   host seconds of the call, the node and unique-kernel counts, the limiter
-   attribution and the predicted seconds by node class.  Fails only if
+   serve paths' prefills (batch 4, seq 512, ``forward``), ``train_olmo`` and
+   ``train_rwkv`` (batch 4, seq 4096, ``train``).  One line a path: the
+   predicted step, the step the phase above measured (the serve phase's
+   prefill, which is cold: the first of its run; the training step's warm
+   median), their ratio, the host seconds of the call, the node and
+   unique-kernel counts, the limiter attribution and the predicted seconds
+   by node class.  Fails only if
    ``step_time`` raises, a prediction is not finite and positive, or the
    single-device makespan is not exactly the node durations folded in
    schedule order.  A prediction far from the card is what the phase
@@ -215,13 +234,25 @@ F32_GRAD_RULE = (3e-5, 3e-5)
 ATTN_BWD_CHECK_SEQS = (256, 96)  # 96: a partial last tile of the backward's 64
 ATTN_BWD_GQA_SHAPES = ((1, 40, 8, 2048, 128), (1, 16, 16, 4096, 128))  # Qwen2.5-14B's group; OLMo-1B
 # train_olmo: the run, its fault and its one-card cut
-TRAIN_ARCH = one_card.TRAIN_ARCH
+TRAIN_ARCH = one_card.TRAIN_PATHS["train_olmo"]
 TRAIN_SHAPE = one_card.TRAIN_SHAPE
 TRAIN_STEPS = 6
 TRAIN_CKPT_EVERY = 3
 TRAIN_FAULT_STEP = 4
 TRAIN_RERUN_STEP = 3  # the checkpoint at 3 is restored and step 3 runs again
 TRAIN_RERUN_RTOL = 1e-4
+# train_rwkv: RWKV6-1.6B at the same cut, a few steps, no checkpoints
+RWKV_TRAIN_ARCH = one_card.TRAIN_PATHS["train_rwkv"]
+RWKV_TRAIN_STEPS = 4
+RWKV_CHECK_ROWS = 32  # batch 0's 32 heads: the stepwise plain gradient on these rows
+# The WKV gradients, dr, dk, dv, dwlog, du and ds0, against the plain
+# version's: |a - b| <= atol rms(b) + rtol |b|, WKV_RULE's 5e-4 with its
+# absolute part in units of each gradient's scale (a gradient entry is a sum
+# over the steps after it, of terms of both signs, that can cancel near
+# zero).  The check phase and train_rwkv print the f32 plain version's own
+# reading against an f64 run beside it (``plain_f32_vs_f64``).
+WKV_GRAD_RULE = (5e-4, 5e-4)
+WKV_BWD_CHECK_SEQ = 1024
 # The WKV rule in units of the data's scale: |a - b| <= atol rms(b) + rtol |b|,
 # for the inputs the full-width models feed the kernel.  There the outputs
 # are thousands (r, k, v about 9 from the reference's fan-in rule), and some
@@ -260,6 +291,8 @@ KERNELS = {  # name: (launch counter, CUDA source, TPU kernel it replaces)
     # no TPU kernel: the JAX package differentiates its XLA reference attention
     "flash_attention_bwd": (attn_kernel.flash_attention_bwd_cuda, "src/repro_torch/csrc/flash_attention_bwd.cu",
                             "src/repro/models/layers.py:111"),
+    # no TPU kernel: the JAX package differentiates its WKV scan, _wkv_scan
+    "wkv_bwd": (wkv_kernel.wkv_bwd_cuda, "src/repro_torch/csrc/wkv_bwd.cu", "src/repro/models/rwkv6.py:62"),
 }
 # launch counters of kernels that no main path may launch
 OFF_PATH = {"stencil25_direct": st_kernel.stencil25_direct_cuda}
@@ -359,7 +392,7 @@ def phase_device() -> str:
 
 
 def phase_build() -> dict:
-    """Builds the four kernels and the stencil probe's variants together;
+    """Builds the six kernels and the stencil probe's variants together;
     returns the probe's libraries."""
     t0 = time.perf_counter()
     probe_jobs = stencil_probe.start_builds()
@@ -387,6 +420,7 @@ def phase_build() -> dict:
     for chunk in wkv_kernel.CHUNKS:
         for kd in wkv_kernel.HEAD_DIMS:
             regs[f"wkv L{chunk} K{kd}"] = wkv_kernel.kernel_attributes(chunk, kd)
+            regs[f"wkv_bwd L{chunk} K{kd}"] = wkv_kernel.bwd_kernel_attributes(chunk, kd)
     for name, attrs in regs.items():
         if attrs["local_bytes"]:
             print(f"chip_smoke: {name} spills {attrs['local_bytes']} B/thread", file=sys.stderr)
@@ -397,6 +431,7 @@ def phase_build() -> dict:
                     if n.startswith("flash_attention") and a["local_bytes"]}
     emit({"phase": "build", "wall_s": wall, "stencil25_f64_spills": stencil_f64_spills,
           "flash_attention_spills": flash_spills,
+          "wkv_bwd_spills": {n: a["local_bytes"] for n, a in regs.items() if n.startswith("wkv_bwd")},
           "nvcc_s": {n: lib.build_seconds for n, lib in libs.items()},
           "ir_regs_per_thread": {"stencil25": appspec.star3d_ir((32, 4, 8)).regs_per_thread,
                                  "lbm_d3q15": appspec.lbm_d3q15_ir((32, 4, 4)).regs_per_thread},
@@ -483,6 +518,7 @@ def phase_check() -> None:
     res.update(check_attention_bwd(gen))
     res.update(check_wkv(gen))
     res.update(check_wkv_heads(gen))
+    res.update(check_wkv_bwd(gen))
     res.update(check_model_padded(gen))
     emit({"phase": "check", "shape": CHECK_SHAPE, "results": res})
     bad = {k: v for k, v in res.items() if not holds(v)}
@@ -673,6 +709,55 @@ def check_wkv_heads(gen: torch.Generator) -> dict:
         for chunk in wkv_kernel.CHUNKS:
             res[f"wkv per-head u, s0 L{chunk} K{kd} S128"] = wkv_reading(
                 wkv_kernel.wkv_cuda(r, k, v, wlog, u, chunk=chunk, s0=s0), plain)
+    return res
+
+
+def wkv_grads(r, k, v, wlog, u, s0, dout, ds=None, chunk=None) -> tuple[torch.Tensor, ...]:
+    """(dr, dk, dv, dwlog, du, ds0) for the upstream gradients ``dout`` of
+    the output and ``ds`` of the final state (None: the output's alone):
+    through the kernel and its backward kernel (``WKVFn``) at ``chunk``, or,
+    where ``chunk`` is None, through the stepwise plain version
+    (``wkv_plain``; ``wkv_f64`` for f64 inputs)."""
+    leaves = [t.detach().requires_grad_() for t in (r, k, v, wlog, u, s0)]
+    with torch.enable_grad():
+        if chunk is not None:
+            out, s = wkv_kernel.wkv_cuda(*leaves[:5], chunk=chunk, s0=leaves[5])
+        else:
+            out, s = (wkv_f64 if r.dtype == torch.float64 else wkv.wkv_plain)(*leaves)
+        if ds is None:
+            return torch.autograd.grad(out, leaves, dout.to(out.dtype))
+        return torch.autograd.grad((out, s), leaves, (dout.to(out.dtype), ds.to(s.dtype)))
+
+
+def check_wkv_bwd(gen: torch.Generator) -> dict:
+    """The backward kernel at every compiled (chunk, K), in the models' form
+    (a bonus per head, row bh % H, an initial state) with the final state's
+    gradient given, at S = ``WKV_BWD_CHECK_SEQ``: all six gradients against
+    autograd through the stepwise plain version by ``WKV_GRAD_RULE``, and
+    both against the same in f64."""
+    res = {}
+    bh, seq = 2 * WKV_CHECK_HEADS, WKV_BWD_CHECK_SEQ
+    names = ("dr", "dk", "dv", "dwlog", "du", "ds0")
+    for kd in wkv_kernel.HEAD_DIMS:
+        r, k, v, wlog, _ = wkv_inputs(gen, bh, seq, kd)
+        u = torch.randn((WKV_CHECK_HEADS, kd), generator=gen, device="cuda")
+        s0, ds = (torch.randn((bh, kd, kd), generator=gen, device="cuda") for _ in range(2))
+        dout = torch.randn((bh, seq, kd), generator=gen, device="cuda")
+        inputs = (r, k, v, wlog, u, s0, dout, ds)
+        want = wkv_grads(*inputs)
+        f64 = wkv_grads(*(t.double() for t in inputs))
+        plain_vs_f64 = grad_reading(want, f64, WKV_GRAD_RULE)["max_ratio"]
+        for chunk in wkv_kernel.CHUNKS:
+            n = wkv_kernel.wkv_bwd_cuda.launches
+            got = wkv_grads(*inputs, chunk=chunk)
+            if wkv_kernel.wkv_bwd_cuda.launches != n + 1:
+                fail(f"the WKV gradient at (chunk {chunk}, K {kd}) did not launch the backward kernel once")
+            res[f"wkv_bwd per-head u, s0, ds L{chunk} K{kd} S{seq}"] = {
+                **grad_reading(got, want, WKV_GRAD_RULE),
+                "by_gradient": {n: scaled_ratio(a, b, WKV_GRAD_RULE) for n, a, b in zip(names, got, want)},
+                "kernel_vs_f64": grad_reading(got, f64, WKV_GRAD_RULE)["max_ratio"],
+                "plain_f32_vs_f64": plain_vs_f64}
+        torch.cuda.synchronize()
     return res
 
 
@@ -1297,7 +1382,182 @@ def phase_train_olmo() -> dict:
     return res
 
 
-def phase_step_time(served: dict, train: dict) -> list[dict]:
+def wkv_bwd_flops(bh: int, seq: int, kd: int, chunk: int) -> float:
+    """The backward kernel's own arithmetic, as ``csrc/wkv_bwd.cu`` does it,
+    in flops (an FMA two): per chunk and block of 16 state rows, delta for
+    s <= t over K (each of the K / 16 blocks of a row computes it), sum_j
+    G S', r' and k' from S dO and G v, the decayed sums within the chunk for
+    dr~ and dk~, A over the block's 16 channels, dv's share and G's update;
+    then the sum of the K / 16 shares."""
+    L, R = chunk, wkv_kernel.BWD_ROWS
+    per_block = (L * (L + 1) / 2 * kd + R * kd + 2 * L * R * kd + L * (L - 1) * R + L * (L + 1) / 2 * R
+                 + L * kd * ((L + 1) / 2 + R) + R * kd * L)
+    return 2.0 * per_block * (kd // R) * (seq // chunk) * bh + bh * seq * kd * (kd // R - 1)
+
+
+def wkv_bwd_bound(r: torch.Tensor, chunk: int) -> dict:
+    """``bound_ms`` of the WKV backward: r, k, v, wlog and dO read and dr,
+    dk, dv and dwlog written once (36 B a (token, channel); u, du and the
+    states' gradients are K^2 a row), over the kernel's own arithmetic at
+    67 TFLOP/s; and beside it the same with the forward's chunk-start
+    states read once (``with_states``)."""
+    bh, seq, kd = r.shape
+    n_bytes = 36.0 * bh * seq * kd
+    flops = wkv_bwd_flops(bh, seq, kd, chunk)
+    b_ms, b_by = bound_ms(n_bytes, flops, torch.float32)
+    s_ms, s_by = bound_ms(n_bytes + 4.0 * bh * (seq // chunk) * kd * kd, flops, torch.float32)
+    return {"bound_ms": b_ms, "bound_by": b_by, "bound_bytes": n_bytes, "bound_flops": flops,
+            "bound_with_states_ms": s_ms, "bound_with_states_by": s_by}
+
+
+def captured_wkv_grads(captured: dict) -> dict:
+    """The backward kernel on the inputs the model fed the WKV in its first
+    layer (r, k, v, wlog, u, s0) with that layer's dO: on the first
+    ``RWKV_CHECK_ROWS`` rows (batch 0, every head) against autograd through
+    the stepwise plain version and both against its f64 run, by
+    ``WKV_GRAD_RULE``; on every row against ``wkv_bwd_plain`` (chunked, the
+    kernel's own plain version), and against a second launch bit for bit
+    (dv's shares are summed in a fixed order); then the times at the
+    captured shape: the
+    backward kernel, the forward with and without its chunk-start states,
+    and ``wkv_bwd_plain``, beside the backward's bound."""
+    r, k, v, wlog, u, s0, dout = (captured[n] for n in ("r", "k", "v", "wlog", "u", "s0", "dout"))
+    bh, seq, kd = r.shape
+    chunk = wkv.select_chunk(bh, seq, kd)
+    rows = [t[:RWKV_CHECK_ROWS] for t in (r, k, v, wlog)] + [u, s0[:RWKV_CHECK_ROWS], dout[:RWKV_CHECK_ROWS]]
+    got = wkv_grads(*rows, chunk=chunk)
+    want = wkv_grads(*rows)
+    f64 = wkv_grads(*(t.double() for t in rows))
+    res = {"shape": [bh, seq, kd], "u": list(u.shape), "chunk": chunk, "rows_checked": RWKV_CHECK_ROWS,
+           **grad_reading(got, want, WKV_GRAD_RULE),
+           "by_gradient": {n: scaled_ratio(a, b, WKV_GRAD_RULE)
+                           for n, a, b in zip(("dr", "dk", "dv", "dwlog", "du", "ds0"), got, want)},
+           "kernel_vs_f64": grad_reading(got, f64, WKV_GRAD_RULE)["max_ratio"],
+           "plain_f32_vs_f64": grad_reading(want, f64, WKV_GRAD_RULE)["max_ratio"],
+           "rms": {n: float(b.double().pow(2).mean().sqrt())
+                   for n, b in zip(("dr", "dk", "dv", "dwlog", "du", "ds0"), want)}}
+    del got, want, f64, rows
+    leaves = [t.detach().requires_grad_() for t in (r, k, v, wlog, u)]
+    with torch.enable_grad():
+        out, _ = wkv_kernel.wkv_cuda(*leaves, chunk=chunk, s0=s0)
+    sr, sk, sv, sw, su, _, states = (t.detach() for t in out.grad_fn.saved_tensors)
+    del out, leaves
+    full = wkv_kernel.wkv_bwd_cuda(sr, sk, sv, sw, su, dout, None, None, chunk, states)
+    again = wkv_kernel.wkv_bwd_cuda(sr, sk, sv, sw, su, dout, None, None, chunk, states)
+    res["repeats_bitwise"] = all(torch.equal(a, b) for a, b in zip(full, again))
+    plain = wkv.wkv_bwd_plain(r, k, v, wlog, u, dout, None, s0, chunk)
+    res["all_rows_vs_wkv_bwd_plain"] = grad_reading(full, plain, WKV_GRAD_RULE)["max_ratio"]
+    del full, again, plain
+    res["ms"] = time_ms(lambda: wkv_kernel.wkv_bwd_cuda(sr, sk, sv, sw, su, dout, None, None, chunk, states))
+    res["plain_ms"] = time_ms(lambda: wkv.wkv_bwd_plain(r, k, v, wlog, u, dout, None, s0, chunk), reps=2, warmup=1)
+    res["library_ms"] = None  # no PyTorch call computes the WKV's gradient
+    res["forward_ms"] = time_ms(lambda: wkv_kernel.wkv_cuda(r, k, v, wlog, u, chunk=chunk, s0=s0))
+    fwd_leaves = [t.detach().requires_grad_() for t in (r, k, v, wlog, u)]
+    with torch.enable_grad():
+        res["forward_with_states_ms"] = time_ms(lambda: wkv_kernel.WKVFn.apply(*fwd_leaves, s0, chunk))
+    res.update(wkv_bwd_bound(r, chunk))
+    res["forward_bound_ms"] = wkv_bound(r, u, with_s0=True)[0]
+    return res
+
+
+def phase_train_rwkv() -> dict:
+    """``train_rwkv``: ``Trainer.fit`` on RWKV6-1.6B at full width, as the
+    module docstring says.  The model's WKV calls are wrapped to keep the
+    first layer's inputs of the first step and, by a hook on its output,
+    its dO; the train step to count each step's launches; the
+    checkpointer's ``save`` is replaced by a no-op that records the step
+    (the end of ``fit`` saves one)."""
+    cfg = get_arch(RWKV_TRAIN_ARCH)
+    shape, reduced = one_card.one_card_train_shape(SHAPES[TRAIN_SHAPE])
+    ckpt_dir = tempfile.mkdtemp(prefix="train_rwkv_", dir=ROOT / "build")  # read by fit's resume: empty
+    captured, per_step, skipped = {}, [], []
+    original_wkv = model_rwkv6.wkv
+
+    def capture(r, k, v, wlog, u, chunk=None, s0=None):
+        out, s = original_wkv(r, k, v, wlog, u, chunk=chunk, s0=s0)
+        if "r" not in captured and out.requires_grad:
+            captured.update(r=r.detach(), k=k.detach(), v=v.detach(), wlog=wlog.detach(), u=u.detach(),
+                            s0=s0.detach())
+            out.register_hook(lambda g: captured.setdefault("dout", g.detach().contiguous()))
+        return out, s
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model_rwkv6.wkv = capture
+    try:
+        t0 = time.perf_counter()
+        model = model_registry.build_model(cfg, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        trainer = Trainer(model, make_optimizer("adamw"), TrainerConfig(ckpt_dir=ckpt_dir))
+        step_fn = trainer.step_fn
+
+        def counted_step(opt_state, batch):
+            before = read_counts()
+            out = step_fn(opt_state, batch)
+            after = read_counts()
+            per_step.append({n: after[n] - before[n] for n in after})
+            return out
+
+        trainer.step_fn = counted_step
+        trainer.ckpt.save = lambda step, state, blocking=False: skipped.append(step)
+        dataset = SyntheticTokenDataset(cfg.vocab, shape.seq_len, shape.global_batch, seed=0)
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer.fit(dataset, n_steps=RWKV_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        log, restarts = trainer.log, trainer.restarts
+        n_params = sum(p.numel() for p in model.parameters())
+        del trainer, model
+    finally:
+        model_rwkv6.wkv = original_wkv
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    steps = [e for e in log if e["event"] == "step"]
+    warm_s = statistics.median(e["dt"] for e in steps[1:])
+    layers = cfg.n_layers
+    res = {"phase": "main", "path": "train_rwkv", "arch": cfg.name, "reduced": reduced,
+           "n_layers": layers, "d_model": cfg.d_model, "wkv_heads": cfg.d_model // cfg.rwkv_head_dim,
+           "params": n_params, "seq_len": shape.seq_len, "global_batch": shape.global_batch,
+           "remat": cfg.remat, "optimizer": "adamw", "init_s": init_s, "fit_s": fit_s, "seconds": fit_s,
+           "launches": launches, "launches_per_step": per_step,
+           "steps": [{k: e[k] for k in ("step", "loss", "grad_norm", "dt")} for e in steps],
+           "restarts": restarts, "events": [e for e in log if e["event"] != "step"],
+           "checkpoints_skipped": skipped, "step_ms_warm_median": warm_s * 1e3,
+           "tokens_per_s": shape.global_batch * shape.seq_len / warm_s, "max_memory_allocated": peak}
+    bad = []
+    if not all(math.isfinite(e["loss"]) and math.isfinite(e["grad_norm"]) for e in steps):
+        bad.append("a loss or a gradient norm is not finite")
+    if restarts or [e["step"] for e in steps] != list(range(RWKV_TRAIN_STEPS)):
+        bad.append(f"the steps run: {[e['step'] for e in steps]}, restarts {restarts}")
+    want = {n: {"wkv": 2 * layers, "wkv_bwd": layers}.get(n, 0) for n in KERNELS}
+    if any(c != want for c in per_step) or len(per_step) != len(steps):
+        bad.append(f"each step must launch {want}: {per_step}")
+    if "dout" not in captured:
+        bad.append("no layer's dO was captured")
+    else:
+        res["captured"] = captured_wkv_grads(captured)
+        if not res["captured"]["max_ratio"] <= 1.0:
+            bad.append(f"the WKV backward kernel disagrees with the plain version on the model's inputs: "
+                       f"{res['captured']}")
+        if not res["captured"]["repeats_bitwise"]:
+            bad.append("two launches of the WKV backward kernel on the same inputs differ")
+    del captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(res)
+    if bad:
+        fail(f"train_rwkv: {'; '.join(bad)}")
+    return res
+
+
+def phase_step_time(served: dict, trains: dict) -> list[dict]:
     """``step_time``: the whole-model estimator's prediction of every
     full-width path's step beside the step the phases above measured, as
     the module docstring says."""
@@ -1305,9 +1565,9 @@ def phase_step_time(served: dict, train: dict) -> list[dict]:
              SERVE_SHAPE["prompt_len"], "forward", res["prefill_ms"],
              "prefill, cold: the serve phase's first (CUDA events)")
             for path, res in served.items()]
-    runs.append(("train_olmo", get_arch(TRAIN_ARCH), train["reduced"], train["global_batch"],
-                 train["seq_len"], "train", train["step_ms_warm_median"],
-                 "warm median step (host clock after synchronize)"))
+    runs += [(path, get_arch(one_card.TRAIN_PATHS[path]), train["reduced"], train["global_batch"],
+              train["seq_len"], "train", train["step_ms_warm_median"],
+              "warm median step (host clock after synchronize)") for path, train in trains.items()]
     rows, bad = [], []
     for path, cfg, reduced, batch, seq, kind, measured_ms, how in runs:
         t0 = time.perf_counter()
@@ -1351,7 +1611,8 @@ def main() -> int:
     main_results += [phase_main_attention(), phase_main_wkv()]
     served = {path: phase_main_serve(path) for path in SERVE}
     train = phase_train_olmo()
-    phase_step_time(served, train)
+    trains = {"train_olmo": train, "train_rwkv": phase_train_rwkv()}
+    phase_step_time(served, trains)
     for r in main_results:  # launches over every main path that runs the kernel
         r["launches_by_path"] = {OWN_PATH[r["name"]]: r["launches"]}
         for path, res in served.items():
@@ -1359,14 +1620,19 @@ def main() -> int:
                 r["launches_by_path"][path] = res["launches"][r["name"]]
             if res["frontend"] and res["frontend"]["launches"][r["name"]]:
                 r["launches_by_path"][f"{path}_frontend"] = res["frontend"]["launches"][r["name"]]
-        if train["launches"][r["name"]]:
-            r["launches_by_path"]["train_olmo"] = train["launches"][r["name"]]
+        for path, res in trains.items():
+            if res["launches"][r["name"]]:
+                r["launches_by_path"][path] = res["launches"][r["name"]]
         r["launches"] = sum(r["launches_by_path"].values())
     bwd = train["captured"]
     main_results.append({"name": "flash_attention_bwd", "launches": train["launches"]["flash_attention_bwd"],
                          "launches_by_path": {"train_olmo": train["launches"]["flash_attention_bwd"]},
                          **{k: bwd[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms")}})
+    wbwd, n_wbwd = trains["train_rwkv"]["captured"], trains["train_rwkv"]["launches"]["wkv_bwd"]
+    main_results.append({"name": "wkv_bwd", "launches": n_wbwd, "launches_by_path": {"train_rwkv": n_wbwd},
+                         **{k: wbwd[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")}})
     kernels = [{"name": r["name"], "route": "cuda", "source": KERNELS[r["name"]][1],
                 "replaces": KERNELS[r["name"]][2], "launches": r["launches"],
                 "launches_by_path": r["launches_by_path"],

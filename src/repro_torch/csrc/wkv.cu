@@ -47,6 +47,11 @@
 // The bonus u is one row of K for every block, or one per head (row
 // blockIdx.x % H, the models' layout bh = b H + h); an initial state s0, where
 // given, seeds each owner's registers (a prefill continuing a cached state).
+// Where the caller asks for them (training: csrc/wkv_bwd.cu reads them), the
+// state at each chunk's start is written too: staged before the first
+// barrier in a K x 16 buffer (4 KB of static shared memory at K = 64) and
+// written between the first and the second, so that each row of the block's
+// slice goes out as 64 contiguous bytes.
 // What limits it (the port's PERF.md): shared-memory wavefronts first, so
 // steps 2 and 3 keep operands in registers where a row would be read again;
 // then issuing step 2's L^2 K / 2 exps (accurate expf).
@@ -102,7 +107,7 @@ struct Chunk {
   static_assert(kOwners <= kThreads && kThreads % kGroup == 0 && L % kGroup == 0,
                 "one 4 x 1 state tile per owner, whole lane groups");
   static_assert(K % kScanCols == 0 && L * K % kThreads == 0, "whole scan passes and rounds");
-  static_assert(kBytes + static_cast<int>(sizeof(float)) * K <= kMaxSmemBytes,
+  static_assert(kBytes + static_cast<int>(sizeof(float)) * K * (1 + kVC) <= kMaxSmemBytes,
                 "chunk exceeds the shared memory of an H100 block");
 };
 
@@ -157,7 +162,8 @@ __global__ void __launch_bounds__(kThreads)
     wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ wlog,
                const float* __restrict__ u, int u_rows, const float* __restrict__ s0,
-               float* __restrict__ out, float* __restrict__ state_out, int seq) {
+               float* __restrict__ out, float* __restrict__ state_out,
+               float* __restrict__ states, int seq) {
   using C = Chunk<L, K>;
   constexpr int P = C::kRow;
   constexpr int W = C::kScan;
@@ -167,6 +173,7 @@ __global__ void __launch_bounds__(kThreads)
   float* kp = rp + C::kArr;          // [L][K+8]: k * exp(Lambda_{L-1} - Lambda_s)
   float* a = kp + C::kArr;           // [L][L+1], 0 above the diagonal
   __shared__ float us[K];
+  __shared__ float stage[K * kVC];  // the chunk-start state slice, where states is given
   __shared__ unsigned char tiles[C::kTiles];  // row tile << 4 | column tile
 
   const int tid = threadIdx.x;
@@ -196,12 +203,19 @@ __global__ void __launch_bounds__(kThreads)
   prefetch<L, K>(smem, r, k, wlog, v, base, col0, tid);
   cp_async_commit();
   for (int c = 0; c < n_chunks; ++c) {
+    if (states != nullptr && owner)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) stage[(jq + q) * kVC + e] = sreg[q];
     cp_async_wait<0>();  // chunk c has landed
     __syncthreads();     // ... for every thread; chunk c - 1 is done with the other stage
     if (c + 1 < n_chunks)
       prefetch<L, K>(smem + ((c + 1) & 1) * C::kStage, r, k, wlog, v,
                      base + static_cast<int64_t>(c + 1) * L * K, col0, tid);
     cp_async_commit();
+    if (states != nullptr) {  // (bh, c, K, K): this block's 16 columns of each row
+      float* sc = states + (static_cast<int64_t>(blockIdx.x) * n_chunks + c) * K * K + col0;
+      for (int i = tid; i < K * kVC; i += kThreads) sc[i / kVC * K + i % kVC] = stage[i];
+    }
     const float* rs = smem + (c & 1) * C::kStage;  // [L][K+8]
     const float* ks = rs + C::kArr;                // [L][K+8]
     float* lam = smem + (c & 1) * C::kStage + 2 * C::kArr;  // [L][K+8]: wlog, then Lambda
@@ -333,7 +347,7 @@ struct Args {
   const float *r, *k, *v, *wlog, *u;
   int u_rows;
   const float* s0;
-  float *out, *state;
+  float *out, *state, *states;
   int bh, seq;
   cudaStream_t stream;
 };
@@ -350,7 +364,7 @@ int launch_chunk(const Args& a) {
   }
   const dim3 grid(a.bh, K / kVC);
   kernel<<<grid, kThreads, C::kBytes, a.stream>>>(a.r, a.k, a.v, a.wlog, a.u, a.u_rows, a.s0,
-                                                   a.out, a.state, a.seq);
+                                                   a.out, a.state, a.states, a.seq);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -381,15 +395,16 @@ extern "C" {
 // r, k, v, wlog, out: (bh, seq, K) f32; u: (u_rows, K), row bh % u_rows
 // for row bh of the others (u_rows = 1: one u for all; u_rows = H with
 // bh = b H + h: one per head); s0: (bh, K, K), the initial state, or null
-// for zeros; state: (bh, K, K), the final state.  Returns cudaGetLastError()
-// after the launch (0 on success); argument errors return
-// cudaErrorInvalidValue.
+// for zeros; state: (bh, K, K), the final state; states: (bh, seq / chunk,
+// K, K), the state at each chunk's start (s0 or zeros at the first), or null
+// for none.  Returns cudaGetLastError() after the launch (0 on success);
+// argument errors return cudaErrorInvalidValue.
 int wkv_launch(int chunk, int K, const float* r, const float* k, const float* v,
                const float* wlog, const float* u, int u_rows, const float* s0, float* out,
-               float* state, int bh, int seq, void* stream) {
+               float* state, float* states, int bh, int seq, void* stream) {
   if (bh < 1 || chunk < 1 || seq % chunk || u_rows < 1 || bh % u_rows)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{r, k, v, wlog, u, u_rows, s0, out, state, bh, seq,
+  const Args a{r, k, v, wlog, u, u_rows, s0, out, state, states, bh, seq,
                static_cast<cudaStream_t>(stream)};
   WKV_CHUNKS(launch_chunk, chunk, K, a)
 }

@@ -6,10 +6,11 @@ whole-model prediction beside the step the card takes, class by class.
 
 * **matmul** — cuBLAS and CUTLASS GEMM kernels (the f32 head's SGEMMs, the
   bf16 products, the small-N GEMV-like kernels, the split-K reductions);
-* **mixer** — the port's flash-attention forward and backward, its WKV, and
-  every kernel launched inside a ``record_function`` range whose name starts
-  with :data:`MIXER_RANGE` (the Mamba2 scan's passes are ATen kernels, so
-  only the range says they are the scan's);
+* **mixer** — the port's flash-attention forward and backward, its WKV
+  forward and backward, and every kernel launched inside a
+  ``record_function`` range whose name starts with :data:`MIXER_RANGE` (the
+  Mamba2 scan's passes are ATen kernels, so only the range says they are the
+  scan's);
 * **elementwise** — everything else: casts and copies, norms, activations,
   reductions, the loss, the optimizer, memory copies and fills.
 
@@ -22,7 +23,7 @@ import re
 NODE_CLASSES = ("matmul", "elementwise", "mixer", "collective")
 MIXER_RANGE = "mixer:"  # record_function prefix for a mixer built of ATen kernels
 MIXER_KERNELS = ("flash_tc_kernel", "flash_f32_kernel", "flash_attention_bwd_", "flash_bwd_",
-                 "wkv_kernel")
+                 "wkv_kernel", "wkv_bwd_")
 _GEMM = re.compile(r"gemm|gemv|nvjet|xmma|cutlass|cublas|splitkreduce", re.IGNORECASE)
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # torch.profiler's device events
 # host-side launches: the runtime API's, and the driver API's (cuLaunchKernel,

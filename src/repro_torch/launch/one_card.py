@@ -13,9 +13,9 @@ of 60 layers would be 1.58 times the published one and at 4 of 40 3.16
 times.
 
 Training keeps f32 parameters, their gradients and two f32 AdamW moments
-(16 B a parameter: OLMo-1B's 1,279.8 M take 20.5 GB) beside the step's
-activations, among them the f32 logits of every position (B x S x vocab x
-4 B) and their gradient.  The one-card training shape keeps a shape's
+(16 B a parameter: OLMo-1B's 1,279.8 M take 20.5 GB, RWKV6-1.6B's 1,476.5 M
+23.6 GB) beside the step's activations, among them the f32 logits of every
+position (B x S x vocab x 4 B) and their gradient.  The one-card training shape keeps a shape's
 sequence length and cuts its global batch to ``ONE_CARD_TRAIN_BATCH``
 (``train_4k``: 4 of 256 sequences of 4096; 256 would take 64 accumulation
 microbatches a step).
@@ -29,14 +29,16 @@ from ..configs import SHAPES, ArchConfig, ShapeConfig, get_arch
 ONE_CARD_LAYERS = {"llava-next-34b": 24, "dbrx-132b": 4}
 ONE_CARD_TRAIN_BATCH = 4
 # the full-width paths one card runs: each served config's prefill of
-# SERVE_REQUESTS prompts of SERVE_PROMPT_LEN, and one training step
+# SERVE_REQUESTS prompts of SERVE_PROMPT_LEN, and each trained config's step
+# on the one-card cut of TRAIN_SHAPE
 SERVE_PATHS = {
     "serve_qwen": "qwen2.5-14b", "serve_rwkv": "rwkv6-1.6b", "serve_stablelm": "stablelm-12b",
     "serve_musicgen": "musicgen-large", "serve_llava": "llava-next-34b", "serve_dbrx": "dbrx-132b",
     "serve_zamba2": "zamba2-7b",
 }
 SERVE_REQUESTS, SERVE_PROMPT_LEN = 4, 512
-TRAIN_PATH, TRAIN_ARCH, TRAIN_SHAPE = "train_olmo", "olmo-1b", "train_4k"
+TRAIN_PATHS = {"train_olmo": "olmo-1b", "train_rwkv": "rwkv6-1.6b"}
+TRAIN_SHAPE = "train_4k"
 
 
 def one_card_config(arch: str) -> tuple[ArchConfig, dict]:
@@ -71,9 +73,10 @@ def one_card_train_shape(shape: ShapeConfig) -> tuple[ShapeConfig, dict]:
 
 def full_width_paths() -> dict[str, tuple[str, int, int, str]]:
     """path -> (arch, batch, seq, kind) of every full-width path: the
-    prefills at ``forward``, the training step at ``train`` on the one-card
+    prefills at ``forward``, the training steps at ``train`` on the one-card
     cut of ``TRAIN_SHAPE``."""
     out = {path: (arch, SERVE_REQUESTS, SERVE_PROMPT_LEN, "forward") for path, arch in SERVE_PATHS.items()}
     shape, _ = one_card_train_shape(SHAPES[TRAIN_SHAPE])
-    out[TRAIN_PATH] = (TRAIN_ARCH, shape.global_batch, shape.seq_len, "train")
+    for path, arch in TRAIN_PATHS.items():
+        out[path] = (arch, shape.global_batch, shape.seq_len, "train")
     return out

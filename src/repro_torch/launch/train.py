@@ -5,6 +5,7 @@ Counterpart of ``repro.launch.train``, with its flags and ``--device``
 
   python -m repro_torch.launch.train --arch olmo-1b --smoke --device cpu
   python -m repro_torch.launch.train --arch olmo-1b --steps 6
+  python -m repro_torch.launch.train --arch rwkv6-1.6b --steps 4
 
 ``--smoke`` trains the config's ``smoke()`` reduction at sequence 128 and
 batch 4; otherwise the config at full width on ``--shape`` with its global

@@ -308,14 +308,17 @@ def test_the_autograd_function_saves_what_its_backward_reads(monkeypatch, remat)
 
 
 def test_wkv_gradient_on_a_device_raises_instead_of_cutting_it():
-    """No WKV backward kernel: asked for a gradient off the CPU, the wrapper
-    raises before any launch (a meta tensor stands in for the card here).
-    Without grad mode, or on the CPU, it runs as before."""
+    """Asked for a gradient on a device that is neither the CPU nor the card,
+    the wrapper raises before any launch and never returns an output whose
+    gradient is cut (a meta tensor here; on the card a gradient goes through
+    ``WKVFn`` and its backward kernel, ``tests/test_torch_wkv_grad.py`` and
+    ``tests/test_torch_gpu.py``).  Without grad mode it raises the same, and
+    on the CPU autograd runs through the plain version."""
     from repro_torch.kernels.wkv import wkv_cuda, wkv_plain
 
     r, k, v, wlog = (torch.empty((2, 32, 16), device="meta") for _ in range(4))
     u = torch.empty(16, device="meta")
-    with pytest.raises(NotImplementedError, match="WKV backward kernel"):
+    with pytest.raises(ValueError, match="CPU or CUDA"):
         wkv_cuda(r.requires_grad_(), k, v, wlog, u, chunk=16)
     with torch.no_grad(), pytest.raises(ValueError, match="CPU or CUDA"):
         wkv_cuda(r, k, v, wlog, u, chunk=16)

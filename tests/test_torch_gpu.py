@@ -11,9 +11,11 @@ rtol 1e-2 (one bf16 ulp is at most 2^-7 |b|) and for WKV at 5e-4, 5e-4
 autograd through ``mha_plain`` by ``ATTN_GRAD_RULE`` for bf16,
 ``|a - b| <= 2e-3 rms(b) + 1e-2 |b|`` (``chip_smoke.py``; atol in units of
 the gradient's scale; the tensor-core kernels), and by the same form with
-3e-5 and 3e-5 for f32 (the scalar kernels).
-Training on the card is held to the CPU's losses by the training tests'
-``TOL``, atol = rtol = 1e-4.
+3e-5 and 3e-5 for f32 (the scalar kernels); the WKV backward kernel to
+autograd through ``wkv_plain`` by ``WKV_GRAD_RULE``, the same form with
+5e-4 and 5e-4 (the WKV tolerance, its absolute part in units of each
+gradient's scale).  Training on the card is held to the CPU's losses by the
+training tests' ``TOL``, atol = rtol = 1e-4.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from repro_torch.kernels.lbm_d3q15 import init_fields, lbm_d3q15_cuda, lbm_step,
 from repro_torch.kernels.stencil25 import config_space as stencil_space
 from repro_torch.kernels.stencil25 import stencil25, stencil25_cuda, stencil25_direct_cuda, stencil25_plain
 from repro_torch.kernels.stencil25.kernel import blocks_per_sm
-from repro_torch.kernels.wkv import wkv, wkv_cuda, wkv_plain
+from repro_torch.kernels.wkv import wkv, wkv_bwd_cuda, wkv_cuda, wkv_plain
 from repro_torch.kernels.wkv.kernel import CHUNKS
 from repro_torch.kernels.wkv.kernel import HEAD_DIMS as WKV_HEAD_DIMS
 from repro_torch.launch.one_card import attention_layers
@@ -276,6 +278,7 @@ def test_smoke_config_serves_the_same_greedy_tokens_on_the_card_and_the_cpu(cuda
 
 
 GRAD_RULE = {torch.bfloat16: (2e-3, 1e-2), torch.float32: (3e-5, 3e-5)}
+WKV_GRAD_RULE = (5e-4, 5e-4)  # chip_smoke.py's: WKV_RULE's 5e-4 in units of each gradient's scale
 
 
 def _scaled_close(a, b, rule) -> bool:
@@ -345,13 +348,47 @@ def test_flash_backward_wrapper_raises_on_what_the_kernels_do_not_take(cuda):
         flash_attention_bwd_cuda(q, q, q, q, lse.double(), q)
 
 
-def test_rwkv6_gradient_on_the_card_raises(cuda):
-    """No WKV backward kernel yet: training RWKV6 on the card raises where
-    the WKV would be differentiated, and never trains with a cut gradient."""
+@pytest.mark.parametrize("kd", WKV_HEAD_DIMS)
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_wkv_backward_kernel_matches_autograd_through_the_plain_version(cuda, chunk, kd):
+    """Every compiled (chunk, K), in the models' form (a bonus per head, an
+    initial state) with a loss on the output and the final state: all six
+    gradients through ``WKVFn`` against autograd through ``wkv_plain`` by
+    ``WKV_GRAD_RULE``, and one backward launch."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    r, k, v, wlog, _ = _wkv_inputs(gen, 6, 256, kd, cuda)
+    u = torch.randn((3, kd), generator=gen, device=cuda)
+    s0, ds = (torch.randn((6, kd, kd), generator=gen, device=cuda) for _ in range(2))
+    dout = torch.randn(r.shape, generator=gen, device=cuda)
+    leaves = [t.requires_grad_() for t in (r, k, v, wlog, u, s0)]
+    n = wkv_bwd_cuda.launches
+    out, s = wkv_cuda(*leaves[:5], chunk=chunk, s0=leaves[5])
+    assert out.grad_fn is not None
+    got = torch.autograd.grad((out, s), leaves, (dout, ds))
+    assert wkv_bwd_cuda.launches == n + 1
+    want = torch.autograd.grad(wkv_plain(*leaves), leaves, (dout, ds))
+    for name, g, w in zip(("dr", "dk", "dv", "dwlog", "du", "ds0"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        assert _scaled_close(g, w, WKV_GRAD_RULE), (name, chunk, kd)
+
+
+def test_smoke_rwkv6_trains_to_the_cpus_losses_on_the_card(cuda):
+    """Three AdamW steps of the smoke RWKV6 from the same parameters and
+    batches on the CPU and on the card; each step on the card launches the
+    WKV forward twice a layer (remat) and its backward once a layer."""
     cfg = get_arch("rwkv6-1.6b").smoke()
-    model = build_model(cfg, device=cuda, seed=0)
-    step = make_train_step(model, make_optimizer("adamw"))
-    ds = SyntheticTokenDataset(cfg.vocab, 32, 2, seed=1)
-    state = make_optimizer("adamw").init(dict(model.named_parameters()))
-    with pytest.raises(NotImplementedError, match="WKV backward kernel"):
-        step(state, to_device(ds.batch(0), cuda))
+    ds = SyntheticTokenDataset(cfg.vocab, 64, 2, seed=1)
+    losses = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, device="cpu", seed=0).to(dev)
+        opt = make_optimizer("adamw")
+        step = make_train_step(model, opt, peak_lr=1e-3)
+        state = opt.init(dict(model.named_parameters()))
+        losses[str(dev)] = []
+        for s in range(3):
+            n, nb = wkv_cuda.launches, wkv_bwd_cuda.launches
+            losses[str(dev)].append(float(step(state, to_device(ds.batch(s), dev))["loss"]))
+            if dev != "cpu":
+                assert wkv_bwd_cuda.launches - nb == cfg.n_layers
+                assert wkv_cuda.launches - n == 2 * cfg.n_layers
+    np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-4, atol=1e-4)

@@ -5,7 +5,7 @@ out, and the kernel classes that set its predictions beside the card.
   ``step_time`` on ``"h100"``, equal with ``==`` to ``repro.graph``'s: the
   seven served configs at batch 4, seq 512, ``forward`` (LLaVA-NeXT-34B and
   DBRX-132B at the depth one card holds, ``launch.one_card``), and OLMo-1B
-  at batch 4, seq 4096, ``train``;
+  and RWKV6-1.6B at batch 4, seq 4096, ``train``;
 * **the CLI:** ``python -m repro_torch.explore graph`` prints the JAX
   package's golden report (``tests/golden/graph_rwkv6_a100.txt``, read,
   never written) byte for byte; ``--json`` and ``--trace`` too;
@@ -80,6 +80,15 @@ def test_full_width_olmo_train_prediction():
     rep, _ = _full_width("train_olmo")
     assert rep.step_time_s == 79.78605980390815
     assert len(rep.dag) == 538 and len(rep.unique) == 18
+
+
+def test_full_width_rwkv6_train_prediction():
+    """The RWKV6 training path, ``train_rwkv``: the JAX package's own
+    step_time for it, and nine full-width paths in all."""
+    rep, _ = _full_width("train_rwkv")
+    assert rep.step_time_s == 33.04892951430303
+    assert len(rep.dag) == 994 and len(rep.unique) == 23
+    assert len(FULL_WIDTH) == 9 and FULL_WIDTH["train_rwkv"] == ("rwkv6-1.6b", 4, 4096, "train")
 
 
 def test_cut_config_is_the_one_card_depth():
@@ -231,6 +240,8 @@ H100_KERNELS = {
         "void (anonymous namespace)::flash_bwd_dq_tc_kernel<128>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*",
         "void (anonymous namespace)::flash_attention_bwd_dkdv_kernel<__nv_bfloat16, 128>(__nv_bfloat16 const*, __nv_bfloat16 cons",
         "void (anonymous namespace)::wkv_kernel<16, 64>(float const*, float const*, float const*, float const*, float const*, int",
+        "void (anonymous namespace)::wkv_bwd_kernel<16, 64>(float const*, float const*, float const*, float const*, float const*, i",
+        "(anonymous namespace)::wkv_bwd_reduce_kernel(float const*, float*, int, long)",
     ],
     "elementwise": [
         "void at::native::vectorized_elementwise_kernel<8, at::native::bfloat16_copy_kernel_cuda(at::TensorIteratorBase&)::{lambd",
