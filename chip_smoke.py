@@ -123,9 +123,13 @@ Phases, one JSON line each:
    first layer's (r, k, v, wlog, u) and dO of the first step are held,
    backward kernel against autograd through the stepwise plain version on
    32 rows and against ``wkv_bwd_plain`` on every row, by
-   ``WKV_GRAD_RULE``, both also read against an f64 run; two launches must
-   give the same bits, and the backward is timed against its bound; warm
-   median step, tokens per second, peak memory;
+   ``WKV_GRAD_RULE``, both also read against an f64 run, and the
+   chunked plain version (``wkv_bwd_plain`` in f32 at the kernel's chunk)
+   against the f64 run on the same 32 rows (``chunked_plain_f32_vs_f64``),
+   and the kernel from the f64 recurrence's chunk-start states rounded to
+   f32 (``kernel_f64_states_vs_f64``: what the forward's states add); two
+   launches must give the same bits, and the backward is timed against its
+   bound; warm median step, tokens per second, peak memory;
 9. step_time — the whole-model estimator, ``repro_torch.graph.step_time``
    on ``"h100"``, for each full-width path above with that path's own
    config (its depth cut included), batch, sequence and kind: the seven
@@ -1084,6 +1088,16 @@ def wkv_f64(r, k, v, wlog, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
     return out, s
 
 
+def wkv_f64_chunk_states(r, k, v, wlog, u, s0, chunk: int) -> torch.Tensor:
+    """The state at each chunk's start from ``wkv_f64``'s recurrence, rounded
+    to f32: (BH, S / chunk, K, K), as the forward kernel writes them."""
+    states = [s0.double()]
+    for c in range(r.shape[1] // chunk - 1):
+        at = slice(c * chunk, (c + 1) * chunk)
+        states.append(wkv_f64(r[:, at], k[:, at], v[:, at], wlog[:, at], u, states[-1])[1])
+    return torch.stack(states, 1).float().contiguous()
+
+
 def captured_reading(kernel_name: str, args: tuple, kw: dict) -> dict:
     """The kernel against its plain version on inputs the model fed it,
     and its time a launch there (``time_ms``)."""
@@ -1383,12 +1397,16 @@ def phase_train_olmo() -> dict:
 
 
 def wkv_bwd_flops(bh: int, seq: int, kd: int, chunk: int) -> float:
-    """The backward kernel's own arithmetic, as ``csrc/wkv_bwd.cu`` does it,
-    in flops (an FMA two): per chunk and block of 16 state rows, delta for
-    s <= t over K (each of the K / 16 blocks of a row computes it), sum_j
-    G S', r' and k' from S dO and G v, the decayed sums within the chunk for
-    dr~ and dk~, A over the block's 16 channels, dv's share and G's update;
-    then the sum of the K / 16 shares."""
+    """The arithmetic of the chunked gradient, in flops (an FMA two), as
+    the backward's first, scalar kernel did it, and counted the same since
+    so that ``bound_ms`` and the share stay comparable across its designs:
+    per chunk and block of 16 state rows, delta for s <= t over K (each of
+    the K / 16 blocks of a row computes it), sum_j G S', r' and k' from S dO
+    and G v, the decayed sums within the chunk for dr~ and dk~, A over the
+    block's 16 channels, dv's share and G's update; then the sum of the
+    K / 16 shares.  It counts the gradient's operations, not the
+    instructions of the kernel now (which splits each tensor-core product
+    into three)."""
     L, R = chunk, wkv_kernel.BWD_ROWS
     per_block = (L * (L + 1) / 2 * kd + R * kd + 2 * L * R * kd + L * (L - 1) * R + L * (L + 1) / 2 * R
                  + L * kd * ((L + 1) / 2 + R) + R * kd * L)
@@ -1415,28 +1433,52 @@ def captured_wkv_grads(captured: dict) -> dict:
     layer (r, k, v, wlog, u, s0) with that layer's dO: on the first
     ``RWKV_CHECK_ROWS`` rows (batch 0, every head) against autograd through
     the stepwise plain version and both against its f64 run, by
-    ``WKV_GRAD_RULE``; on every row against ``wkv_bwd_plain`` (chunked, the
-    kernel's own plain version), and against a second launch bit for bit
+    ``WKV_GRAD_RULE``, with ``wkv_bwd_plain`` in f32 at the kernel's chunk
+    read against the same f64 run (``chunked_plain_f32_vs_f64``: the
+    chunked order's own error), and the kernel from the f64 recurrence's
+    chunk-start states rounded to f32 (``kernel_f64_states_vs_f64``: what
+    the forward kernel's states add), with those states' largest error in
+    units of their rms; on every row against ``wkv_bwd_plain`` (chunked,
+    the kernel's own plain version) and against a second launch bit for bit
     (dv's shares are summed in a fixed order); then the times at the
-    captured shape: the
-    backward kernel, the forward with and without its chunk-start states,
-    and ``wkv_bwd_plain``, beside the backward's bound."""
+    captured shape: the backward kernel, the forward with and without its
+    chunk-start states, and ``wkv_bwd_plain``, beside the backward's
+    bound."""
     r, k, v, wlog, u, s0, dout = (captured[n] for n in ("r", "k", "v", "wlog", "u", "s0", "dout"))
     bh, seq, kd = r.shape
     chunk = wkv.select_chunk(bh, seq, kd)
+    names = ("dr", "dk", "dv", "dwlog", "du", "ds0")
     rows = [t[:RWKV_CHECK_ROWS] for t in (r, k, v, wlog)] + [u, s0[:RWKV_CHECK_ROWS], dout[:RWKV_CHECK_ROWS]]
     got = wkv_grads(*rows, chunk=chunk)
     want = wkv_grads(*rows)
     f64 = wkv_grads(*(t.double() for t in rows))
     res = {"shape": [bh, seq, kd], "u": list(u.shape), "chunk": chunk, "rows_checked": RWKV_CHECK_ROWS,
            **grad_reading(got, want, WKV_GRAD_RULE),
-           "by_gradient": {n: scaled_ratio(a, b, WKV_GRAD_RULE)
-                           for n, a, b in zip(("dr", "dk", "dv", "dwlog", "du", "ds0"), got, want)},
+           "by_gradient": {n: scaled_ratio(a, b, WKV_GRAD_RULE) for n, a, b in zip(names, got, want)},
            "kernel_vs_f64": grad_reading(got, f64, WKV_GRAD_RULE)["max_ratio"],
            "plain_f32_vs_f64": grad_reading(want, f64, WKV_GRAD_RULE)["max_ratio"],
            "rms": {n: float(b.double().pow(2).mean().sqrt())
-                   for n, b in zip(("dr", "dk", "dv", "dwlog", "du", "ds0"), want)}}
-    del got, want, f64, rows
+                   for n, b in zip(names, want)}}
+    # wkv_bwd_plain, the kernel's chunked order in PyTorch, in f32 at the kernel's chunk
+    chunked = wkv.wkv_bwd_plain(*rows[:5], rows[6], None, rows[5], chunk)
+    res["chunked_plain_f32_vs_f64"] = grad_reading(chunked, f64, WKV_GRAD_RULE)["max_ratio"]
+    res["chunked_plain_f32_vs_f64_by_gradient"] = {
+        n: scaled_ratio(a, b, WKV_GRAD_RULE) for n, a, b in zip(names, chunked, f64)}
+    res["kernel_vs_f64_by_gradient"] = {n: scaled_ratio(a, b, WKV_GRAD_RULE) for n, a, b in zip(names, got, f64)}
+    # the kernel from the f64 recurrence's chunk-start states, rounded to f32
+    rr, rk, rv, rw, _, rs0, rdo = rows
+    leaves = [t.detach().requires_grad_() for t in (rr, rk, rv, rw, u)]
+    with torch.enable_grad():
+        out, _ = wkv_kernel.wkv_cuda(*leaves, chunk=chunk, s0=rs0)
+    states = out.grad_fn.saved_tensors[-1].detach()
+    del out, leaves
+    states64 = wkv_f64_chunk_states(rr, rk, rv, rw, u, rs0, chunk)
+    res["forward_states_err_over_rms"] = float((states - states64).abs().max() / states64.pow(2).mean().sqrt())
+    from64 = wkv_kernel.wkv_bwd_cuda(rr, rk, rv, rw, u, rdo, None, rs0, chunk, states64)
+    res["kernel_f64_states_vs_f64"] = grad_reading(from64, f64, WKV_GRAD_RULE)["max_ratio"]
+    res["kernel_f64_states_vs_f64_by_gradient"] = {
+        n: scaled_ratio(a, b, WKV_GRAD_RULE) for n, a, b in zip(names, from64, f64)}
+    del got, want, f64, rows, chunked, states, states64, from64
     leaves = [t.detach().requires_grad_() for t in (r, k, v, wlog, u)]
     with torch.enable_grad():
         out, _ = wkv_kernel.wkv_cuda(*leaves, chunk=chunk, s0=s0)

@@ -354,7 +354,8 @@ def test_wkv_backward_kernel_matches_autograd_through_the_plain_version(cuda, ch
     """Every compiled (chunk, K), in the models' form (a bonus per head, an
     initial state) with a loss on the output and the final state: all six
     gradients through ``WKVFn`` against autograd through ``wkv_plain`` by
-    ``WKV_GRAD_RULE``, and one backward launch."""
+    ``WKV_GRAD_RULE``, one backward launch, and the same bits from a second
+    (dv's shares are summed in a fixed order)."""
     gen = torch.Generator(device=cuda).manual_seed(13)
     r, k, v, wlog, _ = _wkv_inputs(gen, 6, 256, kd, cuda)
     u = torch.randn((3, kd), generator=gen, device=cuda)
@@ -364,8 +365,11 @@ def test_wkv_backward_kernel_matches_autograd_through_the_plain_version(cuda, ch
     n = wkv_bwd_cuda.launches
     out, s = wkv_cuda(*leaves[:5], chunk=chunk, s0=leaves[5])
     assert out.grad_fn is not None
-    got = torch.autograd.grad((out, s), leaves, (dout, ds))
+    got = torch.autograd.grad((out, s), leaves, (dout, ds), retain_graph=True)
     assert wkv_bwd_cuda.launches == n + 1
+    again = torch.autograd.grad((out, s), leaves, (dout, ds))
+    assert wkv_bwd_cuda.launches == n + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), (chunk, kd)
     want = torch.autograd.grad(wkv_plain(*leaves), leaves, (dout, ds))
     for name, g, w in zip(("dr", "dk", "dv", "dwlog", "du", "ds0"), got, want):
         assert g.shape == w.shape and g.dtype == torch.float32, name
