@@ -18,9 +18,11 @@ Phases, one JSON line each:
    all started together), with build seconds, registers and spills per
    thread of every instantiation (the staged and the direct stencil kernel
    each; beside the IR's assumption for the two paper kernels) and the
-   count of tensor-core ``HMMA`` instructions in each kernel's SASS
-   (``cuobjdump -sass``); a bf16 flash instantiation without one, forward
-   or backward, fails the run;
+   count of tensor-core instructions in each kernel's SASS (``cuobjdump
+   -sass``): ``HMMA`` (``mma.sync``) and ``HGMMA`` (``wgmma``).  A bf16
+   flash forward instantiation or a head-dim-160 backward one without
+   ``HMMA``, or a backward one of Hopper's path
+   (``BWD_WGMMA_HEAD_DIMS``) without ``HGMMA``, fails the run;
 3. check   — every kernel against its plain PyTorch version at small sizes:
    all 162 stencil configurations in f64 and a few in f32/bf16 on both
    stencil kernels (staged and direct), all 49 LBM configurations in f64
@@ -428,7 +430,9 @@ def phase_build() -> dict:
     for name, attrs in regs.items():
         if attrs["local_bytes"]:
             print(f"chip_smoke: {name} spills {attrs['local_bytes']} B/thread", file=sys.stderr)
-    hmma = {n: hmma_counts(lib.path) for n, lib in libs.items()}  # by kernel instantiation
+    sass = {n: tensor_core_counts(lib.path) for n, lib in libs.items()}  # by kernel instantiation
+    hmma = {n: {k: c["HMMA"] for k, c in counts.items()} for n, counts in sass.items()}
+    hgmma = {n: {k: c["HGMMA"] for k, c in counts.items() if c["HGMMA"]} for n, counts in sass.items()}
     stencil_f64_spills = {n: a["local_bytes"] for n, a in regs.items()
                           if n.startswith("stencil25") and "float64" in n and a["local_bytes"]}
     flash_spills = {n: a["local_bytes"] for n, a in regs.items()
@@ -440,27 +444,36 @@ def phase_build() -> dict:
           "ir_regs_per_thread": {"stencil25": appspec.star3d_ir((32, 4, 8)).regs_per_thread,
                                  "lbm_d3q15": appspec.lbm_d3q15_ir((32, 4, 4)).regs_per_thread},
           "kernels": regs, "hmma": {n: sum(c.values()) for n, c in hmma.items()},
-          "hmma_flash_attention": hmma["flash_attention"], "hmma_flash_attention_bwd": hmma["flash_attention_bwd"]})
+          "hgmma": {n: sum(c.values()) for n, c in hgmma.items()},
+          "hmma_flash_attention": hmma["flash_attention"], "hmma_flash_attention_bwd": hmma["flash_attention_bwd"],
+          "hgmma_flash_attention_bwd": hgmma["flash_attention_bwd"]})
     missing = [f"flash_tc_kernel<{bq},{bkv},{d}>" for d in attn_kernel.HEAD_DIMS
                for bq, bkv in attn_kernel.TILES
                if not hmma["flash_attention"].get(f"flash_tc_kernel<{bq},{bkv},{d}>")]
-    missing += [f"{name}<{d}>" for d in attn_kernel.HEAD_DIMS
+    missing += [f"{name}<{d}>" for d in attn_kernel.HEAD_DIMS if d not in attn_kernel.BWD_WGMMA_HEAD_DIMS
                 for name in ("flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel")
                 if not hmma["flash_attention_bwd"].get(f"{name}<{d}>")]
     if missing:
-        fail(f"bf16 flash instantiations without tensor-core instructions: {missing}")
+        fail(f"bf16 flash instantiations without tensor-core instructions (HMMA): {missing}")
+    # the backward's Hopper path: wgmma in both kernels at each of its head dims
+    missing = [f"{name}<{d}>" for d in attn_kernel.BWD_WGMMA_HEAD_DIMS
+               for name in ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
+               if not hgmma["flash_attention_bwd"].get(f"{name}<{d}>")]
+    if missing:
+        fail(f"flash backward instantiations of Hopper's path without wgmma (HGMMA): {missing}")
     return probe_libs
 
 
-def hmma_counts(lib: Path) -> dict[str, int]:
-    """HMMA instructions in the SASS of each kernel of a built library, by
-    kernel and template arguments (``flash_tc_kernel<64,64,128>``)."""
+def tensor_core_counts(lib: Path) -> dict[str, dict[str, int]]:
+    """HMMA (``mma.sync``) and HGMMA (``wgmma``) instructions in the SASS of
+    each kernel of a built library, by kernel and template arguments
+    (``flash_tc_kernel<64,64,128>``)."""
     sass = subprocess.run([_build.toolkit_tool("cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, timeout=300, check=True).stdout
     counts = {}
     for block in sass.split("Function : ")[1:]:
         mangled, _, body = block.partition("\n")
-        counts[kernel_name(mangled.strip())] = len(re.findall(r"\bHMMA\b", body))
+        counts[kernel_name(mangled.strip())] = {op: len(re.findall(rf"\b{op}\b", body)) for op in ("HMMA", "HGMMA")}
     return counts
 
 

@@ -25,7 +25,9 @@
 //     causal mask), and writes dK and dV once;
 //   * a dQ kernel: one block per (q head, batch, q tile) loops over the kv
 //     tiles the q tile sees and writes dQ once;
-//   * before them, flash_attention_bwd_delta_kernel writes D, one warp a row.
+//   * before them, flash_attention_bwd_delta_kernel writes D, one warp a row
+//     (kept as it was: it reads o, out_lo and dO once, a small share of
+//     the time).
 // Each of the two recomputes x and dP for its tile pairs, so x and dP are
 // computed twice.
 //
@@ -33,10 +35,20 @@
 // (4, 16, 16, 4096, 128) causal, 0.69 ms at 989 TFLOP/s in bf16 against
 // 0.11 ms for the bytes).  What the design does about that, by input type:
 //
-// bf16 (the models' type) runs every product on the tensor cores
-// (flash_bwd_dkdv_tc_kernel, flash_bwd_dq_tc_kernel; see "bf16: tensor
-// cores" below), with P and dS split in two bf16 halves as the forward
-// splits P, so 24 D tensor-core flops per unmasked pair.
+// bf16 (the models' type) runs every product on the tensor cores.  P and dS
+// are split in two bf16 halves, X_hi = bf16(x) and X_lo = bf16(x - X_hi),
+// as the forward splits P: rounded once to bf16 either of them puts the
+// gradients it feeds (dV for P; dQ and dK for dS) 6 to 23 times past the
+// bf16 gradient rule at S >= 1024 (tests/test_torch_flash_bwd_split.py).
+// So the products come to 20 D tensor-core flops per unmasked pair against
+// the 10 D that the gradient needs: in dK/dV, K Q^T and V dO^T once (4 D)
+// and P^T dO and dS^T Q twice each (8 D); in dQ, Q K^T and dO V^T again
+// (4 D) and dS K twice (4 D).  The bound the design can reach is therefore
+// twice the 10 D one.  Head dims 16, 32, 64, 112 and 128 run on Hopper's
+// own path (see "bf16 on Hopper" below): wgmma from shared memory tiles that
+// TMA fills, a producer warp and two consumer warpgroups.  Head dim 160
+// keeps the mma.sync kernels of "bf16: mma.sync" below: its two 64 x 160
+// f32 accumulators of dK and dV alone are 160 registers a thread.
 //
 // f32 keeps scalar f32 FMAs (flash_attention_bwd_dkdv_kernel,
 // flash_attention_bwd_dq_kernel), as the forward keeps its f32 kernel: 14 D
@@ -49,15 +61,16 @@
 // rows' dO is zero: their D, dP and dS are zero and they add nothing to dK
 // or dV.  Under the causal mask a real query never sees a padded key
 // (key j > query i), so the real rows' gradients are those of the unpadded
-// inputs.  Rows at or past `seq` inside a tile (S not a multiple of 64) are
-// staged as zeros and masked, P = 0, in every kernel.
+// inputs.  Rows at or past `seq` inside a tile (S not a multiple of the
+// tile) are staged as zeros and masked, P = 0, in every kernel.
 //
 // Shared memory per block of the f32 kernels, rows padded to D + 1 (odd, so
 // the 16 rows that a half-warp reads at one column fall in distinct banks):
 // dK/dV kernel Q, dO, K, V (64 x (D + 1) each), P and dS (64 x 65 each),
 // lse and D (64 each): 198,656 B at D = 160; dQ kernel the same without P:
-// 182,016 B.  One block of 256 threads per SM.  The bf16 kernels' layout is
-// stated at TcBwd.
+// 182,016 B.  One block of 256 threads per SM.  The bf16 kernels' layouts
+// are stated at TcBwd and Hop.
+#include <cuda.h>  // CUtensorMap and its enums only: the driver entry is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -344,8 +357,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ---- bf16: tensor cores -----------------------------------------------
+// ---- bf16: mma.sync (head dim 160) ---------------------------------------
 //
+// The first mma.sync kernels, kept for the one head dim that Hopper's path below does
+// not take (its dK and dV accumulators do not fit a warpgroup's registers).
 // The four products that are not elementwise run on the tensor cores with
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate), with the fragment layouts
 // and ldmatrix loads of the forward (flash_attention.cu):
@@ -361,12 +376,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 //     a warp, with their Q and dO fragments in registers, steps over 32 keys
 //     at a time (K and V in two cp.async stages), computes x = Q K^T and
 //     dP = dO V^T, then dS, and dQ += dS K.
-// P and dS are split as the forward splits P, X_hi = bf16(x) and X_lo =
-// bf16(x - X_hi), so that the products that take them keep f32 precision
-// (to about 2^-17): 24 D tensor-core flops per unmasked pair against the
-// 10 D that the gradient needs.  Rows past `seq` are zero-filled by the
-// copies and masked.  The tiles need seq to be a multiple of 32, which the
-// forward's tiles already ask.
+// P and dS are split as stated at the top: 20 D tensor-core flops per
+// unmasked pair.  Rows past `seq` are zero-filled by the copies and masked.
+// The tiles need seq to be a multiple of 32, which the forward's tiles
+// already ask.
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -455,8 +468,8 @@ struct TcBwd {
   static_assert(kDkdvBytes <= kMaxSmemBytes, "tile exceeds the shared memory of an H100 block");
   // bf16 rows padded by 16 bytes, so the 8 rows an ldmatrix reads fall in
   // distinct banks; dK/dV: K and V (64 rows) and two stages of Q, dO (32
-  // rows) with lse and D, 70,144 B at D = 128; dQ: Q and dO (64 rows) and
-  // two stages of K, V (32 rows), 69,632 B.  Two blocks of 128 threads an SM.
+  // rows) with lse and D, 86,528 B at D = 160; dQ: Q and dO (64 rows) and
+  // two stages of K, V (32 rows), 86,016 B.  Two blocks of 128 threads an SM.
 };
 
 // rows [row0, row0 + rows) of a (seq, D) bf16 matrix into dst [rows][D + 8]
@@ -749,6 +762,747 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   }
 }
 
+// ---- bf16 on Hopper: wgmma, TMA and warp specialisation -------------------
+//
+// Head dims 16, 32, 64, 112 and 128.  A block is a producer warpgroup and
+// two consumer warpgroups (384 threads, one block an SM):
+//   * the producer warpgroup gives up registers (setmaxnreg.dec) and lane 0
+//     of its first warp
+//     issues every load as a TMA copy (cp.async.bulk.tensor) of a 3-D
+//     tensor map (B H, S, D), completing on mbarriers.  A tile that reaches
+//     past `seq` is zero-filled by the TMA unit and never reads the next
+//     head's rows;
+//   * the block's resident tiles (K and V in dK/dV, Q and dO in dQ; 128
+//     rows each, 64 a consumer warpgroup) land once; the streamed tiles (Q,
+//     dO, lse and D of 64 queries in dK/dV; K and V of 64 keys in dQ) go
+//     through a ring of kStages stages, each with a full mbarrier (the
+//     producer's expected bytes) and an empty one (one arrival per consumer
+//     warp once its products have read the stage);
+//   * each consumer warpgroup (setmaxnreg.inc) computes its 64 x 64 x^T and
+//     dP^T (dK/dV) or x and dP (dQ) with wgmma.mma_async.m64n64k16, both
+//     operands K-major in shared memory, bf16 in and f32 accumulate;
+//   * P = exp2(x log2(e) - lse log2(e)) and dS in registers; the causal
+//     mask and the rows at or past `seq` are applied only on the tiles that
+//     the diagonal or `seq` crosses;
+//   * P and dS split into hi and lo bf16 A fragments in registers (the
+//     accumulator layout of wgmma is its A fragment layout), then
+//     wgmma.mma_async.m64nDk16 with A from registers and B (dO, Q or K)
+//     MN-major in shared memory: dV += P^T_hi dO + P^T_lo dO and
+//     dK += dS^T_hi Q + dS^T_lo Q, or dQ += dS_hi K + dS_lo K.
+// Shared memory tiles are stored as in a 128-byte (64-byte, 32-byte at head
+// dims 32, 16) swizzled layout that TMA writes and wgmma reads: a 64-row
+// tile is kNc chunks of kCw columns, each 64 rows of kW bytes.  No atomics:
+// dK/dV sum over the group's q heads and q tiles in a fixed order, dQ over
+// the kv tiles in order.
+
+constexpr int kWgRows = 64;                              // rows a consumer warpgroup owns
+constexpr int kConsumers = 2;                            // consumer warpgroups a block
+constexpr int kHopThreads = (kConsumers + 1) * 128;      // and a producer warpgroup, one warp of it busy
+constexpr int kHopBlock = kConsumers * kWgRows;          // keys (dK/dV) or queries (dQ) a block
+constexpr int kStepRows = 64;                            // queries (dK/dV) or keys (dQ) a stage
+constexpr int kStages = 3;
+// setmaxnreg moves registers between the block's warpgroups: 384 threads
+// start with 168 (65,536 / 384), the producer gives up 144 a thread, the
+// two consumers take them, 72 a thread
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Hop {
+  static constexpr int kCw = D >= 64 ? 64 : D;          // columns a chunk: one swizzle span
+  static constexpr int kW = 2 * kCw;                    // bytes a chunk row
+  static constexpr int kNc = (D + kCw - 1) / kCw;       // chunks a row (D = 112: the last half zero)
+  static constexpr int kTileBytes = kNc * kStepRows * kW;    // bytes of a 64-row tile
+  static constexpr int kLayout = kW == 128 ? 1 : kW == 64 ? 2 : 3;  // wgmma's 128B, 64B, 32B swizzle
+  static constexpr int kVec = kStepRows * 4;            // bytes of 64 rows of lse or D
+  // dK/dV: K and V (two tiles each), Q and dO of each stage, lse and D of
+  // each stage, then the mbarriers (K/V full, full[kStages], empty[kStages])
+  static constexpr int kDkdvBars = 4 * kTileBytes + 2 * kStages * kTileBytes + 2 * kStages * kVec;
+  static constexpr int kDkdvTx = 2 * kTileBytes + 2 * kVec;  // bytes a stage expects
+  // dQ: Q and dO (two tiles each), K and V of each stage, the mbarriers
+  static constexpr int kDqBars = 4 * kTileBytes + 2 * kStages * kTileBytes;
+  static constexpr int kDqTx = 2 * kTileBytes;
+  static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
+  static constexpr int kDkdvBytes = 1024 + kDkdvBars + kBarBytes;  // + the base's alignment to 1024
+  static constexpr int kDqBytes = 1024 + kDqBars + kBarBytes;
+  static_assert(D % 16 == 0 && D <= 128, "Hopper's path takes head dims that are multiples of 16 up to 128");
+  static_assert(kTileBytes % 1024 == 0, "tiles keep the 1024-byte alignment of the swizzle pattern");
+  static_assert(kDkdvBytes <= kMaxSmemBytes && kDqBytes <= kMaxSmemBytes,
+                "tiles exceed the shared memory of an H100 block");
+  // d128: dK/dV 166,456 B (K, V 64 KB; three stages of Q, dO 96 KB, lse
+  // and D 1.5 KB), dQ 164,920 B (Q, dO 64 KB; three stages of K, V 96 KB).
+};
+
+// -- mbarriers and TMA
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival on `bar` that also expects `bytes` of TMA copies
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("{\n .reg .b64 state;\n mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n .reg .b64 state;\n mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar) : "memory");
+}
+
+// waits until the phase of `bar` with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// a box of the 3-D map at (column, row, head) into dst, completing on bar
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// a box of the 2-D map at (row, head) into dst, completing on bar
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// -- registers between the warpgroups
+
+template <int R>
+__device__ __forceinline__ void regs_release() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void regs_claim() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// -- wgmma
+
+// A shared-memory matrix descriptor: start address, leading and stride
+// byte offsets, swizzle layout (1: 128B, 2: 64B, 3: 32B)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, int layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(layout) << 62;
+}
+
+// The descriptor of a 64-row tile at `tile` as a K-major operand (8-row
+// groups 8 kW bytes apart) or as an MN-major one (chunks kStepRows kW bytes
+// apart), to which k_step and mn_step add the start of a k step.  The
+// base passes through `opaque` inside a loop, so that the compiler forms
+// each step's descriptor where it is used instead of keeping all of them.
+template <int D>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile) {
+  using H = Hop<D>;
+  return smem_desc(tile, 16, 8 * H::kW, H::kLayout);
+}
+template <int D>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile) {
+  using H = Hop<D>;
+  return smem_desc(tile, kStepRows * H::kW, 8 * H::kW, H::kLayout);
+}
+
+// k step kd of a K-major operand: columns 16 kd .. 16 kd + 15 of the head
+// dim, in 16-byte units of the start address
+template <int D>
+__device__ __forceinline__ constexpr uint64_t k_step(int kd) {
+  using H = Hop<D>;
+  return static_cast<uint64_t>((16 * kd / H::kCw) * kStepRows * H::kW + (16 * kd % H::kCw) * 2) >> 4;
+}
+
+// k step kk of an MN-major operand: rows 16 kk .. 16 kk + 15 of the tile
+template <int D>
+__device__ __forceinline__ constexpr uint64_t mn_step(int kk) {
+  return static_cast<uint64_t>(16 * kk * Hop<D>::kW) >> 4;
+}
+
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("mov.b64 %0, %0;\n" : "+l"(x));
+  return x;
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of registers that an
+// asynchronous wgmma reads or writes across its wait.
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d = A B^T (first) and d += A B^T (acc) for a 64 x 16 A and a 64 x 16 B,
+// both K-major in shared memory (descriptors da, db).  The first step of a
+// product writes d without reading it, so d is free between products.
+__device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+      "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+      "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+      "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+      "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+__device__ __forceinline__ void wgmma_ss_n64_acc(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// the 64 x 64 product d = A B^T over the head dim, D / 16 k steps, from
+// the K-major descriptors of A's and B's tiles
+template <int D>
+__device__ __forceinline__ void wgmma_scores(float (&d)[32], uint64_t da, uint64_t db) {
+  wgmma_ss_n64_first(d, da, db);
+#pragma unroll
+  for (int kd = 1; kd < D / 16; ++kd) wgmma_ss_n64_acc(d, da + k_step<D>(kd), db + k_step<D>(kd));
+}
+
+// d += A B for A 64 x 16 in registers (a) and B 16 x 16, MN-major in
+// shared memory (descriptor db)
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B for A 64 x 16 in registers (a) and B 16 x 32, MN-major in
+// shared memory (descriptor db)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B for A 64 x 16 in registers (a) and B 16 x 64, MN-major in
+// shared memory (descriptor db)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B for A 64 x 16 in registers (a) and B 16 x 112, MN-major in
+// shared memory (descriptor db)
+__device__ __forceinline__ void wgmma_rs(float (&d)[56], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B for A 64 x 16 in registers (a) and B 16 x 128, MN-major in
+// shared memory (descriptor db)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Splits a 64 x 64 accumulator in place into the hi and lo bf16 A
+// fragments of its four k steps (columns 16 kk .. 16 kk + 15): k step kk's
+// hi fragment goes to c[8 kk .. 8 kk + 3] and its lo one to c[8 kk + 4 ..
+// 8 kk + 7], as bits.  Element 4 j + 2 h + e of a wgmma accumulator is row
+// 16 warp + g + 8 h, column 8 j + 2 tq + e, and the A fragment of a k step
+// takes the n8 blocks j = 2 kk and 2 kk + 1 in that order.  In place, the
+// fragments take the accumulator's registers and no others.
+__device__ __forceinline__ void split_acc(float (&c)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split2(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1], hi[r], lo[r]);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      c[8 * kk + r] = __uint_as_float(hi[r]);
+      c[8 * kk + 4 + r] = __uint_as_float(lo[r]);
+    }
+  }
+}
+
+// d += A_hi B + A_lo B for k step kk of a split accumulator (split_acc)
+template <int N>
+__device__ __forceinline__ void wgmma_split(float (&d)[N], const float (&c)[32], int kk, uint64_t db) {
+  const uint32_t hi[4] = {__float_as_uint(c[8 * kk]), __float_as_uint(c[8 * kk + 1]), __float_as_uint(c[8 * kk + 2]),
+                          __float_as_uint(c[8 * kk + 3])};
+  const uint32_t lo[4] = {__float_as_uint(c[8 * kk + 4]), __float_as_uint(c[8 * kk + 5]),
+                          __float_as_uint(c[8 * kk + 6]), __float_as_uint(c[8 * kk + 7])};
+  wgmma_rs(d, hi, db);
+  wgmma_rs(d, lo, db);
+}
+
+// dK and dV of 128 keys of one (batch, kv head): keys k0 + 64 wg .. for
+// consumer warpgroup wg, over the group's q heads in order and, inside, the
+// q tiles of 64 that see the keys, in order
+template <int D>
+__global__ void __launch_bounds__(kHopThreads, 1)
+    flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                                const __grid_constant__ CUtensorMap tm_lse,
+                                const __grid_constant__ CUtensorMap tm_delta, bf16* __restrict__ dk,
+                                bf16* __restrict__ dv, int hq, int hkv, int seq, int causal, float scale) {
+  using H = Hop<D>;
+  extern __shared__ unsigned char hop_dkdv_smem[];
+  const uint32_t raw = smem_addr(hop_dkdv_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const unsigned char* base_ptr = hop_dkdv_smem + (base - raw);
+  const uint32_t ks = base;                                // K: two tiles, one a warpgroup
+  const uint32_t vs = ks + 2 * H::kTileBytes;              // V: the same
+  const uint32_t qs = vs + 2 * H::kTileBytes;              // Q of stage st at qs + st * kTileBytes
+  const uint32_t dos = qs + kStages * H::kTileBytes;       // dO of each stage
+  const uint32_t lse_s = dos + kStages * H::kTileBytes;    // lse of stage st at lse_s + st * kVec
+  const uint32_t dd_s = lse_s + kStages * H::kVec;         // D of each stage
+  const uint32_t kv_full = base + H::kDkdvBars;
+  const uint32_t full0 = kv_full + 8, empty0 = full0 + 8 * kStages;
+
+  const int kv_head = blockIdx.x, batch = blockIdx.y;
+  const int k0 = blockIdx.z * kHopBlock;  // the first kv tiles see the most q tiles: they start first
+  const int group = hq / hkv;
+  const int bh_kv = batch * hkv + kv_head;
+  const int n_q = (seq + kStepRows - 1) / kStepRows;
+  const int first = causal ? k0 / kStepRows : 0;  // the q tiles that see this kv tile
+  const int per_head = n_q - first;
+  const int total = group * per_head;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, kConsumers * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {  // the producer warpgroup
+    regs_release<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect(kv_full, 4 * H::kTileBytes);
+      for (int half = 0; half < 2; ++half)
+        for (int c = 0; c < H::kNc; ++c) {
+          const uint32_t off = half * H::kTileBytes + c * kStepRows * H::kW;
+          tma_load_3d(ks + off, &tm_k, c * H::kCw, k0 + half * kWgRows, bh_kv, kv_full);
+          tma_load_3d(vs + off, &tm_v, c * H::kCw, k0 + half * kWgRows, bh_kv, kv_full);
+        }
+      for (int it = 0; it < total; ++it) {
+        const int st = it % kStages;
+        mbar_wait(empty0 + 8 * st, ((it / kStages) & 1) ^ 1);
+        const int bh = batch * hq + kv_head * group + it / per_head;  // a fixed order over the group's q heads
+        const int q0 = (first + it % per_head) * kStepRows;
+        const uint32_t full = full0 + 8 * st;
+        mbar_expect(full, H::kDkdvTx);
+        for (int c = 0; c < H::kNc; ++c) {
+          const uint32_t off = st * H::kTileBytes + c * kStepRows * H::kW;
+          tma_load_3d(qs + off, &tm_q, c * H::kCw, q0, bh, full);
+          tma_load_3d(dos + off, &tm_do, c * H::kCw, q0, bh, full);
+        }
+        tma_load_2d(lse_s + st * H::kVec, &tm_lse, q0, bh, full);
+        tma_load_2d(dd_s + st * H::kVec, &tm_delta, q0, bh, full);
+      }
+    }
+  } else {  // consumer warpgroup wg: keys key0 .. key0 + 63
+    regs_claim<kConsumerRegs>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, tq = lane % 4;
+    const int key0 = k0 + wg * kWgRows;
+    const uint32_t k_tile = ks + wg * H::kTileBytes, v_tile = vs + wg * H::kTileBytes;
+    const float c2 = scale * kLog2e;
+    float acc_k[D / 2], acc_v[D / 2], xt[32], dpt[32];  // dK, dV; x^T then P^T; dP^T then dS^T
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < total; ++it) {
+      const int st = it % kStages;
+      const int q0 = (first + it % per_head) * kStepRows;
+      mbar_wait(full0 + 8 * st, (it / kStages) & 1);
+      if (!causal || q0 + kStepRows - 1 >= key0) {  // else every query of the tile precedes every key
+        const uint64_t kb = opaque(desc_kmajor<D>(k_tile)), vb = opaque(desc_kmajor<D>(v_tile));
+        const uint64_t qb = desc_kmajor<D>(qs + st * H::kTileBytes), dob = desc_kmajor<D>(dos + st * H::kTileBytes);
+        wgmma_fence();
+        wgmma_scores<D>(xt, kb, qb);
+        wgmma_commit();
+        wgmma_scores<D>(dpt, vb, dob);
+        wgmma_commit();
+        const float* lse_r = reinterpret_cast<const float*>(base_ptr + (lse_s - base) + st * H::kVec);
+        const float* dd_r = reinterpret_cast<const float*>(base_ptr + (dd_s - base) + st * H::kVec);
+        const bool edge = (causal && q0 == key0) || q0 + kStepRows > seq || key0 + kWgRows > seq;
+        wgmma_wait<1>();
+        hold(xt);
+        // P^T: element 4 j + 2 h + e is key key0 + 16 warp + g + 8 h, query q0 + 8 j + 2 tq + e
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l = *reinterpret_cast<const float2*>(lse_r + 8 * j + 2 * tq);
+          const float l2[2] = {l.x * kLog2e, l.y * kLog2e};
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * j + 2 * h + e;
+              float p = exp2_approx(fmaf(xt[i], c2, -l2[e]));
+              if (edge) {
+                const int key = key0 + 16 * warp + g + 8 * h, qi = q0 + 8 * j + 2 * tq + e;
+                if (qi >= seq || key >= seq || (causal && key > qi)) p = 0.f;
+              }
+              xt[i] = p;
+            }
+        }
+        wgmma_wait<0>();
+        hold(dpt);
+        // dS^T = P^T (dP^T - D)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 dd = *reinterpret_cast<const float2*>(dd_r + 8 * j + 2 * tq);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            dpt[4 * j + 2 * h] = xt[4 * j + 2 * h] * (dpt[4 * j + 2 * h] - dd.x);
+            dpt[4 * j + 2 * h + 1] = xt[4 * j + 2 * h + 1] * (dpt[4 * j + 2 * h + 1] - dd.y);
+          }
+        }
+        // dV += P^T dO, then dK += dS^T Q, 16 queries a step, each operand
+        // in its hi and lo halves; dS^T is split while dV's products run
+        split_acc(xt);
+        const uint64_t dom = desc_mnmajor<D>(dos + st * H::kTileBytes);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_split(acc_v, xt, kk, dom + mn_step<D>(kk));
+        wgmma_commit();
+        split_acc(dpt);
+        const uint64_t qm = desc_mnmajor<D>(qs + st * H::kTileBytes);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_split(acc_k, dpt, kk, qm + mn_step<D>(kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        hold(acc_v);
+        hold(acc_k);
+        hold(xt);
+        hold(dpt);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * st);  // this warp is done with the stage
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = key0 + 16 * warp + g + 8 * h;
+      if (key >= seq) continue;
+      const int64_t off = (static_cast<int64_t>(bh_kv) * seq + key) * D + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * j) = pack_bf16(
+            __float2bfloat16_rn(acc_k[4 * j + 2 * h] * scale), __float2bfloat16_rn(acc_k[4 * j + 2 * h + 1] * scale));
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
+            pack_bf16(__float2bfloat16_rn(acc_v[4 * j + 2 * h]), __float2bfloat16_rn(acc_v[4 * j + 2 * h + 1]));
+      }
+    }
+  }
+}
+
+// dQ of 128 queries of one (batch, q head): queries q0 + 64 wg .. for
+// consumer warpgroup wg, over the kv tiles of 64 that they see, in order
+template <int D>
+__global__ void __launch_bounds__(kHopThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                              const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
+                              int hq, int hkv, int seq, int causal, float scale) {
+  using H = Hop<D>;
+  extern __shared__ unsigned char hop_dq_smem[];
+  const uint32_t raw = smem_addr(hop_dq_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t qs = base;                              // Q: two tiles, one a warpgroup
+  const uint32_t dos = qs + 2 * H::kTileBytes;           // dO: the same
+  const uint32_t ks = dos + 2 * H::kTileBytes;           // K of stage st at ks + st * kTileBytes
+  const uint32_t vs = ks + kStages * H::kTileBytes;      // V of each stage
+  const uint32_t qd_full = base + H::kDqBars;
+  const uint32_t full0 = qd_full + 8, empty0 = full0 + 8 * kStages;
+
+  const int head = blockIdx.x, batch = blockIdx.y;
+  const int n_blocks = (seq + kHopBlock - 1) / kHopBlock;
+  const int q0 = (causal ? n_blocks - 1 - blockIdx.z : blockIdx.z) * kHopBlock;  // longest first
+  const int bh = batch * hq + head;
+  const int bh_kv = batch * hkv + head / (hq / hkv);
+  const int n_kv_all = (seq + kStepRows - 1) / kStepRows;
+  const int n_kv = causal ? min(n_kv_all, (q0 + kHopBlock) / kStepRows) : n_kv_all;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, kConsumers * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {  // the producer warpgroup
+    regs_release<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect(qd_full, 4 * H::kTileBytes);
+      for (int half = 0; half < 2; ++half)
+        for (int c = 0; c < H::kNc; ++c) {
+          const uint32_t off = half * H::kTileBytes + c * kStepRows * H::kW;
+          tma_load_3d(qs + off, &tm_q, c * H::kCw, q0 + half * kWgRows, bh, qd_full);
+          tma_load_3d(dos + off, &tm_do, c * H::kCw, q0 + half * kWgRows, bh, qd_full);
+        }
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = j % kStages;
+        mbar_wait(empty0 + 8 * st, ((j / kStages) & 1) ^ 1);
+        const uint32_t full = full0 + 8 * st;
+        mbar_expect(full, H::kDqTx);
+        for (int c = 0; c < H::kNc; ++c) {
+          const uint32_t off = st * H::kTileBytes + c * kStepRows * H::kW;
+          tma_load_3d(ks + off, &tm_k, c * H::kCw, j * kStepRows, bh_kv, full);
+          tma_load_3d(vs + off, &tm_v, c * H::kCw, j * kStepRows, bh_kv, full);
+        }
+      }
+    }
+  } else {  // consumer warpgroup wg: queries qw .. qw + 63
+    regs_claim<kConsumerRegs>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, tq = lane % 4;
+    const int qw = q0 + wg * kWgRows;
+    const uint32_t q_tile = qs + wg * H::kTileBytes, do_tile = dos + wg * H::kTileBytes;
+    const float c2 = scale * kLog2e;
+    int row[2];
+    float l2[2], dd[2];  // this thread's two queries: lse log2(e) and D
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      row[h] = qw + 16 * warp + g + 8 * h;
+      l2[h] = row[h] < seq ? lse[static_cast<int64_t>(bh) * seq + row[h]] * kLog2e : 0.f;
+      dd[h] = row[h] < seq ? delta[static_cast<int64_t>(bh) * seq + row[h]] : 0.f;
+    }
+    float acc[D / 2], sc[32], ds[32];  // dQ; x then P; dP then dS
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(qd_full, 0);
+    for (int j = 0; j < n_kv; ++j) {
+      const int st = j % kStages;
+      const int kv0 = j * kStepRows;
+      mbar_wait(full0 + 8 * st, (j / kStages) & 1);
+      if (!causal || kv0 <= qw + kWgRows - 1) {  // else every key of the tile follows every query
+        const uint64_t qb = opaque(desc_kmajor<D>(q_tile)), dob = opaque(desc_kmajor<D>(do_tile));
+        const uint64_t kb = desc_kmajor<D>(ks + st * H::kTileBytes), vb = desc_kmajor<D>(vs + st * H::kTileBytes);
+        wgmma_fence();
+        wgmma_scores<D>(sc, qb, kb);
+        wgmma_commit();
+        wgmma_scores<D>(ds, dob, vb);
+        wgmma_commit();
+        const bool edge = (causal && kv0 == qw) || qw + kWgRows > seq || kv0 + kStepRows > seq;
+        wgmma_wait<1>();
+        hold(sc);
+        // P: element 4 j + 2 h + e is query row[h], key kv0 + 8 j + 2 tq + e
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * jj + 2 * h + e;
+              float p = exp2_approx(fmaf(sc[i], c2, -l2[h]));
+              if (edge) {
+                const int key = kv0 + 8 * jj + 2 * tq + e;
+                if (row[h] >= seq || key >= seq || (causal && key > row[h])) p = 0.f;
+              }
+              sc[i] = p;
+            }
+        wgmma_wait<0>();
+        hold(ds);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) ds[i] = sc[i] * (ds[i] - dd[(i / 2) % 2]);
+        split_acc(ds);
+        const uint64_t km = desc_mnmajor<D>(ks + st * H::kTileBytes);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_split(acc, ds, kk, km + mn_step<D>(kk));  // dQ += dS K, 16 keys a step
+        wgmma_commit();
+        wgmma_wait<0>();
+        hold(acc);
+        hold(ds);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * st);  // this warp is done with the stage
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (row[h] >= seq) continue;
+      const int64_t off = (static_cast<int64_t>(bh) * seq + row[h]) * D + 2 * tq;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj)
+        *reinterpret_cast<uint32_t*>(dq + off + 8 * jj) = pack_bf16(
+            __float2bfloat16_rn(acc[4 * jj + 2 * h] * scale), __float2bfloat16_rn(acc[4 * jj + 2 * h + 1] * scale));
+    }
+  }
+}
+
+// -- the tensor maps (host)
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver that the runtime loaded, so the
+// library needs no -lcuda; null where the driver has none
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      cudaGetLastError();
+      p = nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// returned where the driver refuses a tensor map: kMapError + its CUresult
+constexpr int kMapError = 100000;
+
+// (bh, seq, d) bf16 rows, boxes of (kCw columns, 64 rows, 1 head), swizzled
+template <int D>
+int map_rows(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh, int seq) {
+  using H = Hop<D>;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(seq) * D * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(H::kCw), static_cast<cuuint32_t>(kStepRows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = H::kW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : H::kW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+                              elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(res);
+}
+
+// (bh, seq) f32 per-row values, boxes of 64 rows
+inline int map_vec(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh, int seq) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(seq) * 4};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kStepRows), 1};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims, strides, box,
+                              elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(res);
+}
+
 // ---- launch -----------------------------------------------------------
 
 struct Args {
@@ -769,56 +1523,108 @@ int allow_smem(Kernel kernel, int bytes) {
   return 0;
 }
 
-// the kernels, blocks and shared memory for one input type: bf16 on the
-// tensor cores, f32 on the FMA pipe
+// the kernels, blocks and shared memory for one input type and head dim:
+// bf16 on Hopper's path up to D = 128 and on mma.sync at 160, f32 on the
+// FMA pipe
 template <typename T, int D>
 struct Kernels {
   static constexpr bool kTc = std::is_same<T, bf16>::value;
-  static constexpr int kBlockThreads = kTc ? kTcThreads : kThreads;
-  static constexpr int kBlockRows = kTc ? kTcBlock : kTile;
-  static constexpr int kDkdvBytes = kTc ? TcBwd<D>::kDkdvBytes : Smem<D>::kDkdvBytes;
-  static constexpr int kDqBytes = kTc ? TcBwd<D>::kDqBytes : Smem<D>::kDqBytes;
+  static constexpr bool kHop = kTc && D <= 128;
+  static constexpr int dkdv_bytes() {
+    if constexpr (kHop)
+      return Hop<D>::kDkdvBytes;
+    else if constexpr (kTc)
+      return TcBwd<D>::kDkdvBytes;
+    else
+      return Smem<D>::kDkdvBytes;
+  }
+  static constexpr int dq_bytes() {
+    if constexpr (kHop)
+      return Hop<D>::kDqBytes;
+    else if constexpr (kTc)
+      return TcBwd<D>::kDqBytes;
+    else
+      return Smem<D>::kDqBytes;
+  }
   static auto dkdv() {
-    if constexpr (kTc)
+    if constexpr (kHop)
+      return flash_bwd_dkdv_wgmma_kernel<D>;
+    else if constexpr (kTc)
       return flash_bwd_dkdv_tc_kernel<D>;
     else
       return flash_attention_bwd_dkdv_kernel<T, D>;
   }
   static auto dq() {
-    if constexpr (kTc)
+    if constexpr (kHop)
+      return flash_bwd_dq_wgmma_kernel<D>;
+    else if constexpr (kTc)
       return flash_bwd_dq_tc_kernel<D>;
     else
       return flash_attention_bwd_dq_kernel<T, D>;
   }
 };
 
+// the dK/dV and dQ kernels of Hopper's path, after the D kernel
+template <int D>
+int launch_hopper(const Args& a) {
+  using H = Hop<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int bhq = a.batch * a.hq, bhkv = a.batch * a.hkv;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_lse, tm_delta;
+  int err;
+  if ((err = map_rows<D>(encode, &tm_q, a.q, bhq, a.seq)) || (err = map_rows<D>(encode, &tm_k, a.k, bhkv, a.seq)) ||
+      (err = map_rows<D>(encode, &tm_v, a.v, bhkv, a.seq)) ||
+      (err = map_rows<D>(encode, &tm_do, a.dout, bhq, a.seq)) ||
+      (err = map_vec(encode, &tm_lse, a.lse, bhq, a.seq)) || (err = map_vec(encode, &tm_delta, a.delta, bhq, a.seq)))
+    return err;
+  const unsigned n_blocks = static_cast<unsigned>((a.seq + kHopBlock - 1) / kHopBlock);
+  auto dkdv = flash_bwd_dkdv_wgmma_kernel<D>;
+  if ((err = allow_smem(dkdv, H::kDkdvBytes))) return err;
+  dkdv<<<dim3(a.hkv, a.batch, n_blocks), kHopThreads, H::kDkdvBytes, a.stream>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_lse, tm_delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.hq, a.hkv,
+      a.seq, a.causal, a.scale);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+  auto dq = flash_bwd_dq_wgmma_kernel<D>;
+  if ((err = allow_smem(dq, H::kDqBytes))) return err;
+  dq<<<dim3(a.hq, a.batch, n_blocks), kHopThreads, H::kDqBytes, a.stream>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.dq), a.hq, a.hkv, a.seq, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch_d(const Args& a) {
   using KN = Kernels<T, D>;
   if (KN::kTc && a.seq % kTcStep) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t rows = static_cast<int64_t>(a.batch) * a.hq * a.seq;
-  const int n_tiles = (a.seq + KN::kBlockRows - 1) / KN::kBlockRows;
   flash_attention_bwd_delta_kernel<T, D>
       <<<static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32)), kThreads, 0, a.stream>>>(
           static_cast<const T*>(a.o), static_cast<const T*>(a.o_lo), static_cast<const T*>(a.dout),
           static_cast<float*>(a.delta), rows);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  auto dkdv = KN::dkdv();
-  if ((err = allow_smem(dkdv, KN::kDkdvBytes))) return err;
-  dkdv<<<dim3(a.hkv, a.batch, n_tiles), KN::kBlockThreads, KN::kDkdvBytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const T*>(a.dout), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.hq, a.hkv,
-      a.seq, a.causal, a.scale);
-  if ((err = static_cast<int>(cudaGetLastError()))) return err;
-  auto dq = KN::dq();
-  if ((err = allow_smem(dq, KN::kDqBytes))) return err;
-  dq<<<dim3(a.hq, a.batch, n_tiles), KN::kBlockThreads, KN::kDqBytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const T*>(a.dout), static_cast<T*>(a.dq), a.hq, a.hkv, a.seq, a.causal, a.scale);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (KN::kHop) {
+    return launch_hopper<D>(a);
+  } else {
+    constexpr int threads = KN::kTc ? kTcThreads : kThreads, tile = KN::kTc ? kTcBlock : kTile;
+    const int n_tiles = (a.seq + tile - 1) / tile;
+    auto dkdv = KN::dkdv();
+    if ((err = allow_smem(dkdv, KN::dkdv_bytes()))) return err;
+    dkdv<<<dim3(a.hkv, a.batch, n_tiles), threads, KN::dkdv_bytes(), a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<const T*>(a.dout), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.hq, a.hkv,
+        a.seq, a.causal, a.scale);
+    if ((err = static_cast<int>(cudaGetLastError()))) return err;
+    auto dq = KN::dq();
+    if ((err = allow_smem(dq, KN::dq_bytes()))) return err;
+    dq<<<dim3(a.hq, a.batch, n_tiles), threads, KN::dq_bytes(), a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<const T*>(a.dout), static_cast<T*>(a.dq), a.hq, a.hkv, a.seq, a.causal, a.scale);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 struct Attrs {
@@ -835,10 +1641,10 @@ int attrs_d(int which, Attrs* out) {
       out->smem_bytes = 0;
       return static_cast<int>(cudaFuncGetAttributes(&out->func, flash_attention_bwd_delta_kernel<T, D>));
     case 1:
-      out->smem_bytes = KN::kDkdvBytes;
+      out->smem_bytes = KN::dkdv_bytes();
       return static_cast<int>(cudaFuncGetAttributes(&out->func, KN::dkdv()));
     case 2:
-      out->smem_bytes = KN::kDqBytes;
+      out->smem_bytes = KN::dq_bytes();
       return static_cast<int>(cudaFuncGetAttributes(&out->func, KN::dq()));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -874,9 +1680,12 @@ extern "C" {
 // dtype: 0 = f32, 1 = bf16.  q, o, dout, dq: (batch, hq, seq, d); o_lo:
 // null, or the forward's rounding error of o, the same shape; k, v, dk, dv:
 // (batch, hkv, seq, d); lse and delta (scratch, written here): (batch, hq,
-// seq) f32; all contiguous.  Launches the three kernels in order on
-// `stream`; returns cudaGetLastError() after them (0 on success), or
-// cudaErrorInvalidValue for arguments the kernels do not take.
+// seq) f32; all contiguous (bf16 at head dims up to 128: 16-byte aligned,
+// as TMA reads them).  Launches the three kernels in order on `stream`;
+// returns cudaGetLastError() after them (0 on success),
+// cudaErrorInvalidValue for arguments the kernels do not take,
+// cudaErrorNotSupported where the driver has no cuTensorMapEncodeTiled, or
+// 100000 + the CUresult where it refuses a tensor map.
 int flash_attention_bwd_launch(int dtype, int d, const void* q, const void* k, const void* v,
                                const void* o, const void* o_lo, const void* lse,
                                const void* dout, void* dq, void* dk, void* dv, void* delta,

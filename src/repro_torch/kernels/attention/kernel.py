@@ -32,7 +32,10 @@ from .ref import mha_plain
 # compile time, a tile that would not fit an H100 block
 TILES = ((32, 32), (64, 32), (64, 64), (128, 64))
 HEAD_DIMS = (16, 32, 64, 112, 128, 160)
-BWD_BF16_SEQ = 32  # the bf16 backward stages 32 queries or keys a step
+BWD_BF16_SEQ = 32  # the bf16 backward takes S a multiple of 32, as the forward's tiles
+# head dims whose bf16 backward runs on Hopper's path (wgmma, TMA, warp
+# specialisation); 160 keeps the mma.sync kernels (csrc/flash_attention_bwd.cu)
+BWD_WGMMA_HEAD_DIMS = (16, 32, 64, 112, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

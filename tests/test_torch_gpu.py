@@ -29,7 +29,7 @@ from repro_torch.configs import get_arch
 from repro_torch.kernels.attention import flash_attention, flash_attention_cuda, mha_plain
 from repro_torch.data import SyntheticTokenDataset, to_device
 from repro_torch.configs import ARCH_IDS
-from repro_torch.kernels.attention.kernel import HEAD_DIMS, TILES, flash_attention_bwd_cuda
+from repro_torch.kernels.attention.kernel import BWD_WGMMA_HEAD_DIMS, HEAD_DIMS, TILES, flash_attention_bwd_cuda
 from repro_torch.kernels.lbm_d3q15 import config_space as lbm_space
 from repro_torch.kernels.lbm_d3q15 import init_fields, lbm_d3q15_cuda, lbm_step, lbm_step_plain
 from repro_torch.kernels.stencil25 import config_space as stencil_space
@@ -308,6 +308,27 @@ def test_flash_backward_kernel_matches_autograd_through_the_plain_version(cuda, 
         for name, g, w in zip("qkv", got, want):
             assert g.dtype == dtype and g.shape == w.shape
             assert _scaled_close(g, w, GRAD_RULE[dtype]), (name, hq, hkv, s, causal)
+
+
+@pytest.mark.parametrize("d", BWD_WGMMA_HEAD_DIMS)
+def test_flash_backward_gives_the_same_bits_twice_and_counts_one_launch(cuda, d):
+    """No atomics: the dK/dV and dQ kernels sum in a fixed order, so two
+    calls on the same inputs (OLMo-1B's 16 heads at S = 1024, and Qwen2.5-14B's
+    group of 5 at S = 96, a half tile) give equal bits; one call is one
+    launch of the wrapper."""
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    for (hq, hkv), s in (((16, 16), 1024), ((10, 2), 96)):
+        q, k, v = (torch.randn((2, h, s, d), generator=gen, device=cuda).to(torch.bfloat16).requires_grad_()
+                   for h in (hq, hkv, hkv))
+        dout = torch.randn(q.shape, generator=gen, device=cuda).to(torch.bfloat16)
+        out = flash_attention_cuda(q, k, v, True, *((64, 64) if s % 64 == 0 else (32, 32)))
+        saved = out.grad_fn.saved_tensors  # q, k, v, out, lse, out_lo
+        n = flash_attention_bwd_cuda.launches
+        first = flash_attention_bwd_cuda(*saved[:5], dout, True, saved[5])
+        assert flash_attention_bwd_cuda.launches == n + 1
+        second = flash_attention_bwd_cuda(*saved[:5], dout, True, saved[5])
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != "rwkv6-1.6b"])

@@ -1,8 +1,10 @@
 """The port stands alone and never falls back silently.
 
 * Importing every ``repro_torch`` module, ``chip_smoke.py``,
-  ``benchmarks/torch_rank_check.py``, ``benchmarks/torch_ranking_host.py``
-  or ``benchmarks/torch_step_time_check.py`` loads no ``jax`` and nothing of
+  ``benchmarks/torch_rank_check.py``, ``benchmarks/torch_ranking_host.py``,
+  ``benchmarks/torch_step_time_check.py``,
+  ``benchmarks/torch_flash_bwd_turns.py`` or
+  ``benchmarks/torch_flash_bwd_drift.py`` loads no ``jax`` and nothing of
   ``repro`` (checked in a fresh interpreter).
 * Without CUDA, the state-creating functions raise unless asked for the CPU,
   ``chip_smoke.py``, the rank check and the step-time check exit non-zero
@@ -80,7 +82,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
         assert name in res["modules"]
 
 
-@pytest.mark.parametrize("script", ["torch_rank_check", "torch_ranking_host", "torch_step_time_check"])
+@pytest.mark.parametrize("script", ["torch_rank_check", "torch_ranking_host", "torch_step_time_check",
+                                    "torch_flash_bwd_turns", "torch_flash_bwd_drift"])
 def test_paper_path_benchmarks_import_no_jax_and_no_repro(script):
     """``benchmarks/<script>.py``, imported alone."""
     probe = (f"import json, sys; sys.path.insert(0, 'benchmarks'); import {script}; "
