@@ -132,7 +132,25 @@ Phases, one JSON line each:
    f32 (``kernel_f64_states_vs_f64``: what the forward's states add); two
    launches must give the same bits, and the backward is timed against its
    bound; warm median step, tokens per second, peak memory;
-9. step_time — the whole-model estimator, ``repro_torch.graph.step_time``
+9. sharded — a one-rank NCCL process group (a ``HashStore``: no network)
+   and a (1, 1) ``DeviceMesh`` (``launch.mesh.make_test_mesh``) on the
+   card, then two paths through the DTensor placements
+   (``train/sharding.py``): ``train_sharded``, ``Trainer.fit`` with
+   ``mesh=`` on ``train_olmo``'s model, cut and data, 4 steps from seed 0,
+   no checkpoints; fails unless the parameters are DTensors, every loss is
+   finite, each step launches the flash forward twice a layer and its
+   backward once, and the losses sit within 1e-4 relative of
+   ``train_olmo``'s first 4 (whether they are equal to the bit is
+   printed), with the warm step, tokens per second and peak memory beside
+   ``train_olmo``'s.  Then ``serve_sharded``: RWKV6-1.6B at full width
+   (seed 0, ``serve_rwkv``'s prompts) through ``make_prefill_step`` and
+   ``make_decode_step`` on the mesh: the prefill bundle, the prompt through
+   the decode bundle on a zeroed cache, then greedy steps to 16 tokens;
+   fails unless the prefill and the cache fill each launch ``wkv`` once a
+   layer, the decode none, and the tokens equal ``serve_rwkv``'s; prefill,
+   cache-fill and decode times beside ``serve_rwkv``'s, and peak memory.
+   The group is destroyed at the end;
+10. step_time — the whole-model estimator, ``repro_torch.graph.step_time``
    on ``"h100"``, for each full-width path above with that path's own
    config (its depth cut included), batch, sequence and kind: the seven
    serve paths' prefills (batch 4, seq 512, ``forward``), ``train_olmo`` and
@@ -167,6 +185,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -199,6 +218,9 @@ from repro_torch.train import trainer as train_trainer  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
 from repro_torch.models import rwkv6 as model_rwkv6  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
+from repro_torch.train.step import make_decode_step, make_prefill_step  # noqa: E402
 import torch_rank_check as rank_check  # noqa: E402
 import torch_stencil_probe as stencil_probe  # noqa: E402
 
@@ -248,6 +270,8 @@ TRAIN_FAULT_STEP = 4
 TRAIN_RERUN_STEP = 3  # the checkpoint at 3 is restored and step 3 runs again
 TRAIN_RERUN_RTOL = 1e-4
 # train_rwkv: RWKV6-1.6B at the same cut, a few steps, no checkpoints
+SHARDED_TRAIN_STEPS = 4  # train_sharded: train_olmo's first steps, through a (1, 1) mesh
+SHARDED_LOSS_RTOL = 1e-4
 RWKV_TRAIN_ARCH = one_card.TRAIN_PATHS["train_rwkv"]
 RWKV_TRAIN_STEPS = 4
 RWKV_CHECK_ROWS = 32  # batch 0's 32 heads: the stepwise plain gradient on these rows
@@ -1254,7 +1278,8 @@ def phase_main_serve(path: str) -> dict:
            "max_memory_allocated": res["peak_memory_bytes"],
            "decode_bound_ms": bound, "decode_over_bound": res["decode_ms_per_step"] / bound,
            "prefill_logits_shape": prefill_logits, "logits_finite": finite,
-           "first_tokens": tokens[:, :8].tolist(), "captured": readings, "frontend": frontend}
+           "first_tokens": tokens[:, :8].tolist(), "tokens": tokens.tolist(), "captured": readings,
+           "frontend": frontend}
     emit(out)
     if not all(finite.values()):
         fail(f"{path}: logits are not finite: {finite}")
@@ -1612,6 +1637,196 @@ def phase_train_rwkv() -> dict:
     return res
 
 
+def sharded_train(mesh, train_olmo: dict) -> dict:
+    """``train_sharded``: ``train_olmo``'s model, cut and data through
+    ``Trainer.fit`` on ``mesh``, ``SHARDED_TRAIN_STEPS`` steps from seed 0,
+    no checkpoints; each step's launches counted as ``train_olmo`` counts
+    them."""
+    cfg = get_arch(TRAIN_ARCH)
+    shape, reduced = one_card.one_card_train_shape(SHAPES[TRAIN_SHAPE])
+    ckpt_dir = tempfile.mkdtemp(prefix="train_sharded_", dir=ROOT / "build")  # read by fit's resume: empty
+    per_step, skipped = [], []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        model = model_registry.build_model(cfg, device="cuda", seed=0)
+        t0 = time.perf_counter()
+        trainer = Trainer(model, make_optimizer("adamw"), TrainerConfig(ckpt_dir=ckpt_dir), mesh=mesh, shape=shape)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        step_fn = trainer.step_fn
+
+        def counted_step(opt_state, batch):
+            before = read_counts()
+            out = step_fn(opt_state, batch)
+            after = read_counts()
+            per_step.append({n: after[n] - before[n] for n in after})
+            return out
+
+        trainer.step_fn = counted_step
+        trainer.ckpt.save = lambda step, state, blocking=False: skipped.append(step)
+        dataset = SyntheticTokenDataset(cfg.vocab, shape.seq_len, shape.global_batch, seed=0)
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer.fit(dataset, n_steps=SHARDED_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        log, restarts = trainer.log, trainer.restarts
+        placements = sorted({str(tuple(p.placements)) for p in model.parameters()})
+        dtensors = all(hasattr(p, "placements") for p in model.parameters())
+        del trainer, model
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    steps = [e for e in log if e["event"] == "step"]
+    losses = [e["loss"] for e in steps]
+    olmo = [e["loss"] for e in train_olmo["steps"][:SHARDED_TRAIN_STEPS]]
+    warm_s = statistics.median(e["dt"] for e in steps[1:])
+    layers = cfg.n_layers
+    res = {"phase": "sharded", "path": "train_sharded", "arch": cfg.name, "reduced": reduced,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "backend": "nccl",
+           "params_are_dtensors": dtensors, "placements": placements, "place_s": place_s, "fit_s": fit_s,
+           "seq_len": shape.seq_len, "global_batch": shape.global_batch, "launches": launches,
+           "launches_per_step": per_step,
+           "steps": [{k: e[k] for k in ("step", "loss", "grad_norm", "dt")} for e in steps],
+           "train_olmo_losses": olmo,
+           "loss_rel_diff": [abs(a - b) / abs(b) for a, b in zip(losses, olmo)],
+           "losses_bit_equal": losses == olmo,
+           "step_ms_warm_median": warm_s * 1e3,
+           "train_olmo_step_ms_warm_median": train_olmo["step_ms_warm_median"],
+           "step_over_train_olmo": warm_s * 1e3 / train_olmo["step_ms_warm_median"],
+           "tokens_per_s": shape.global_batch * shape.seq_len / warm_s,
+           "train_olmo_tokens_per_s": train_olmo["tokens_per_s"],
+           "max_memory_allocated": peak, "train_olmo_max_memory_allocated": train_olmo["max_memory_allocated"]}
+    emit(res)
+    bad = []
+    if not dtensors:
+        bad.append("the parameters are not DTensors on the mesh")
+    if not all(math.isfinite(e["loss"]) and math.isfinite(e["grad_norm"]) for e in steps):
+        bad.append("a loss or a gradient norm is not finite")
+    if restarts or [e["step"] for e in steps] != list(range(SHARDED_TRAIN_STEPS)):
+        bad.append(f"the steps run: {[e['step'] for e in steps]}, restarts {restarts}")
+    if len(olmo) != SHARDED_TRAIN_STEPS or not all(d <= SHARDED_LOSS_RTOL for d in res["loss_rel_diff"]):
+        bad.append(f"the losses {losses} are not within {SHARDED_LOSS_RTOL} relative of train_olmo's {olmo}")
+    want = {n: {"flash_attention": 2 * layers, "flash_attention_bwd": layers}.get(n, 0) for n in KERNELS}
+    if any(c != want for c in per_step) or len(per_step) != len(steps):
+        bad.append(f"each step must launch {want}: {per_step}")
+    if bad:
+        fail(f"train_sharded: {'; '.join(bad)}")
+    return res
+
+
+def timed_ms(fn):
+    """(fn(), its milliseconds between two CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def sharded_serve(mesh, serve_rwkv: dict) -> dict:
+    """``serve_sharded``: ``serve_rwkv``'s model (seed 0) and prompts
+    (numpy, seed 0) through ``make_prefill_step`` and ``make_decode_step``
+    on ``mesh``: the prefill bundle's logits, the prompt through the decode
+    bundle on a zeroed cache (``ServeEngine.prefill``'s way, which fills the
+    cache) and greedy decode steps after it."""
+    arch, kernel_name = SERVE["serve_rwkv"]
+    cfg, reduced = one_card.one_card_config(arch)
+    n_req, n_prompt, n_new = SERVE_SHAPE["requests"], SERVE_SHAPE["prompt_len"], SERVE_SHAPE["steps"]
+    max_len = n_prompt + n_new + 8  # as launch.serve's engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = model_registry.build_model(cfg, device="cuda", seed=0, init_depth=get_arch(arch).n_layers)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, size=(n_req, n_prompt))
+                               .astype(np.int32)).to(model.device, torch.long)
+    shape = ShapeConfig("serve", seq_len=max_len, global_batch=n_req, kind="decode")
+    t0 = time.perf_counter()
+    prefill, decode = make_prefill_step(model, mesh, shape), make_decode_step(model, mesh, shape)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    launches = {}
+    zero_counts()
+    logits, prefill_ms = timed_ms(lambda: prefill({"tokens": prompts}))
+    launches["prefill"] = read_counts()
+    prefill_tok = logits.full_tensor()[:, -1:].argmax(dim=-1)
+    finite = {"prefill": bool(torch.isfinite(logits.full_tensor()).all())}
+    del logits
+    _, prefill_first_ms = timed_ms(lambda: prefill({"tokens": prompts}))  # DTensor's sharding rules cached
+    _, fill_first_ms = timed_ms(lambda: decode(model.init_cache(n_req, max_len), prompts))
+    zero_counts()
+    cache = model.init_cache(n_req, max_len)
+    (logits, cache), fill_ms = timed_ms(lambda: decode(cache, prompts))
+    launches["cache_fill"] = read_counts()
+    tok = logits.full_tensor()[:, -1:].argmax(dim=-1)
+    out = [tok]
+
+    def steps():
+        nonlocal tok, cache, logits
+        for _ in range(n_new - 1):
+            logits, cache = decode(cache, tok)
+            tok = logits.full_tensor()[:, -1:].argmax(dim=-1)
+            out.append(tok)
+
+    zero_counts()
+    _, decode_ms = timed_ms(steps)
+    launches["decode"] = read_counts()
+    finite["last_step"] = bool(torch.isfinite(logits.full_tensor()).all())
+    tokens = torch.cat(out, dim=1).cpu().tolist()
+    peak = torch.cuda.max_memory_allocated()
+    cache_layout = {f: str(tuple(getattr(cache, f).placements)) for f in ("shift_tm", "shift_cm", "s")}
+    del model, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"phase": "sharded", "path": "serve_sharded", "arch": cfg.name, "reduced": reduced,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "requests": n_req, "prompt_len": n_prompt,
+           "steps": n_new, "place_s": place_s, "launches": launches, "cache_placements": cache_layout,
+           "prefill_ms": prefill_ms, "prefill_ms_warm": prefill_first_ms, "cache_fill_ms": fill_ms,
+           "cache_fill_ms_first": fill_first_ms, "serve_rwkv_prefill_ms": serve_rwkv["prefill_ms"],
+           "decode_ms_per_step": decode_ms / max(n_new - 1, 1),
+           "serve_rwkv_decode_ms_per_step": serve_rwkv["decode_ms_per_step"],
+           "decode_over_serve_rwkv": decode_ms / max(n_new - 1, 1) / serve_rwkv["decode_ms_per_step"],
+           "max_memory_allocated": peak, "serve_rwkv_max_memory_allocated": serve_rwkv["max_memory_allocated"],
+           "logits_finite": finite, "tokens": tokens, "tokens_equal_serve_rwkv": tokens == serve_rwkv["tokens"],
+           "prefill_bundle_first_token_equal": prefill_tok.cpu().tolist() == [t[:1] for t in tokens]}
+    emit(res)
+    bad = []
+    layers = {n: cfg.n_layers if n == kernel_name else 0 for n in KERNELS}
+    for part in ("prefill", "cache_fill"):
+        if launches[part] != layers:
+            bad.append(f"the {part} must launch {kernel_name} once per layer ({cfg.n_layers}): {launches[part]}")
+    if any(launches["decode"].values()):
+        bad.append(f"the decode launched a kernel: {launches['decode']}")
+    if not all(finite.values()):
+        bad.append(f"logits are not finite: {finite}")
+    if not res["tokens_equal_serve_rwkv"]:
+        bad.append(f"the greedy tokens differ from serve_rwkv's: {tokens} against {serve_rwkv['tokens']}")
+    if bad:
+        fail(f"serve_sharded: {'; '.join(bad)}")
+    return res
+
+
+def phase_sharded(train_olmo: dict, serve_rwkv: dict) -> dict:
+    """``sharded``: a one-rank NCCL process group (a ``HashStore``, no
+    network), a (1, 1) ``DeviceMesh`` on the card, and the two paths above
+    through the placements; the group is destroyed at the end."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh(1, 1)
+        return {"train_sharded": sharded_train(mesh, train_olmo), "serve_sharded": sharded_serve(mesh, serve_rwkv)}
+    finally:
+        dist.destroy_process_group()
+
+
 def phase_step_time(served: dict, trains: dict) -> list[dict]:
     """``step_time``: the whole-model estimator's prediction of every
     full-width path's step beside the step the phases above measured, as
@@ -1667,6 +1882,7 @@ def main() -> int:
     served = {path: phase_main_serve(path) for path in SERVE}
     train = phase_train_olmo()
     trains = {"train_olmo": train, "train_rwkv": phase_train_rwkv()}
+    sharded = phase_sharded(train, served["serve_rwkv"])
     phase_step_time(served, trains)
     for r in main_results:  # launches over every main path that runs the kernel
         r["launches_by_path"] = {OWN_PATH[r["name"]]: r["launches"]}
@@ -1678,10 +1894,14 @@ def main() -> int:
         for path, res in trains.items():
             if res["launches"][r["name"]]:
                 r["launches_by_path"][path] = res["launches"][r["name"]]
+        sharded_launches = {"train_sharded": sharded["train_sharded"]["launches"][r["name"]],
+                            "serve_sharded": sum(c[r["name"]] for c in sharded["serve_sharded"]["launches"].values())}
+        r["launches_by_path"].update({p: n for p, n in sharded_launches.items() if n})
         r["launches"] = sum(r["launches_by_path"].values())
     bwd = train["captured"]
-    main_results.append({"name": "flash_attention_bwd", "launches": train["launches"]["flash_attention_bwd"],
-                         "launches_by_path": {"train_olmo": train["launches"]["flash_attention_bwd"]},
+    n_bwd = {"train_olmo": train["launches"]["flash_attention_bwd"],
+             "train_sharded": sharded["train_sharded"]["launches"]["flash_attention_bwd"]}
+    main_results.append({"name": "flash_attention_bwd", "launches": sum(n_bwd.values()), "launches_by_path": n_bwd,
                          **{k: bwd[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms")}})
     wbwd, n_wbwd = trains["train_rwkv"]["captured"], trains["train_rwkv"]["launches"]["wkv_bwd"]

@@ -6,7 +6,7 @@ the four assigned input shapes.
 
 Counterpart of ``repro.configs.base``, copied as it is (the tests hold the two
 equal) except for ``input_specs``, the dry run's stand-ins, which waits for
-the port of the dry run (ROADMAP Queue 1 item 7).
+the port of the dry run (ROADMAP Queue 1 item 7b).
 """
 from __future__ import annotations
 

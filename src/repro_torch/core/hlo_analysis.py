@@ -3,7 +3,7 @@
 
 The whole-model replay (``repro_torch.graph``) prices its communication
 edges with it.  The JAX module's HLO parsing waits for the port of the dry
-run (ROADMAP Queue 1 item 7).
+run (ROADMAP Queue 1 item 7b).
 """
 from __future__ import annotations
 

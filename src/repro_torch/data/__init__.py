@@ -1,2 +1,2 @@
 """Data pipeline: counterpart of ``repro.data``."""
-from .pipeline import SyntheticTokenDataset, to_device  # noqa: F401
+from .pipeline import SyntheticTokenDataset, to_device, to_mesh  # noqa: F401

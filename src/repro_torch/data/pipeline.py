@@ -6,9 +6,11 @@ packages see the same tokens, labels and frontend embeddings at every step
 and a restart resumes bit-identically from a checkpointed step.  Tokens
 follow a skewed (Zipf-ish) distribution with a simple Markov overlay.
 
-The JAX package's ``ShardedLoader`` places batches on a device mesh; the
-port has one device until distribution is ported, and copies each batch to
-it with :func:`to_device`.
+:func:`to_device` copies a batch to one device.  On a mesh every rank
+builds the whole batch from the step's seed and :func:`to_mesh` lays it
+out by its specs (the batch split over the dp axes, ``Shard(0)``), as
+``jax.device_put`` of the global batch does in the JAX package's
+``ShardedLoader``.
 """
 from __future__ import annotations
 
@@ -65,3 +67,11 @@ def to_device(batch: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
         t = torch.from_numpy(v)
         out[k] = t.to(device, torch.int64) if v.dtype.kind in "iu" else t.to(device)
     return out
+
+
+def to_mesh(batch: dict[str, np.ndarray], mesh, specs: dict) -> dict:
+    """A host batch as DTensors on ``mesh``, each laid out by its entry of
+    ``specs`` (``train.sharding.batch_pspecs``)."""
+    from ..train.sharding import place
+
+    return {k: place(t, mesh, specs[k]) for k, t in to_device(batch, mesh.device_type).items()}

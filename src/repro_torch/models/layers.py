@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..kernels.attention import flash_attention
 from .params import ParamDef
+from .shardctx import constrain, is_dtensor, kernel_placements, on_mesh, shard_local
 
 Params = Mapping[str, torch.Tensor]
 
@@ -109,7 +110,7 @@ def rope(x, positions, theta: float = 10000.0):
     """x: (..., S, H, hd); positions: (..., S), or (..., 1) to give every
     token one position."""
     half = x.shape[-1] // 2
-    angles = positions[..., :, None].float() * rope_freqs(half, theta, x.device)
+    angles = positions[..., :, None].float() * on_mesh(rope_freqs(half, theta, x.device), positions)
     cos = torch.cos(angles)[..., :, None, :]
     sin = torch.sin(angles)[..., :, None, :]
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
@@ -142,7 +143,19 @@ def attention(q, k, v):
 
     S is zero-padded to a multiple of ``ATTN_PAD`` for the kernel's tiles and
     the output sliced back.  That is exact under the causal mask: a real
-    query sees only the keys at or before it, all real."""
+    query sees only the keys at or before it, all real.
+
+    DTensors go to the kernel as their local shards: the batch over the dp
+    axes and the heads over tp where both head counts divide (else q, k and
+    v are replicated over tp first), so each device holds whole query
+    groups."""
+    if is_dtensor(q):
+        pl = kernel_placements(q.device_mesh, 4, (0, q.shape[0]), (q.shape[2], k.shape[2]), 2)
+        return shard_local(_attention, (q, k, v), (pl, pl, pl), pl)
+    return _attention(q, k, v)
+
+
+def _attention(q, k, v):
     B, S, H, hd = q.shape
     pad = -S % ATTN_PAD
     qt, kt, vt = (F.pad(a.transpose(1, 2), (0, 0, 0, pad)).contiguous() for a in (q, k, v))
@@ -164,9 +177,9 @@ def attention_block(
     B, S, d = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     cdt = x.dtype
-    q = (x @ p["wq"].to(cdt)).reshape(B, S, H, hd)
-    k = (x @ p["wk"].to(cdt)).reshape(B, S, Hkv, hd)
-    v = (x @ p["wv"].to(cdt)).reshape(B, S, Hkv, hd)
+    q = constrain((x @ p["wq"].to(cdt)).reshape(B, S, H, hd), ("dp", None, "tp", None))
+    k = constrain((x @ p["wk"].to(cdt)).reshape(B, S, Hkv, hd), ("dp", None, "tp", None))
+    v = constrain((x @ p["wv"].to(cdt)).reshape(B, S, Hkv, hd), ("dp", None, "tp", None))
     if cfg.qkv_bias:
         q = q + p["bq"].to(cdt).reshape(H, hd)
         k = k + p["bk"].to(cdt).reshape(Hkv, hd)
@@ -187,7 +200,7 @@ def attention_block(
         else:
             out = _cached_attention(q, ck, cv, idx)
     y = out.reshape(B, S, H * hd) @ p["wo"].to(cdt)
-    return y, new_cache
+    return constrain(y, ("dp", None, None)), new_cache
 
 
 def _cached_attention(q, ck, cv, cache_len: int):
@@ -199,8 +212,8 @@ def _cached_attention(q, ck, cv, cache_len: int):
     scale = 1.0 / np.sqrt(hd)
     qg = q.reshape(B, S, Hkv, G, hd)
     scores = torch.einsum("bchgd,bthd->bhgct", qg.float(), ck.float()) * scale
-    qpos = cache_len + torch.arange(S, device=q.device)[:, None]
-    kpos = torch.arange(T, device=q.device)[None, :]
+    qpos = on_mesh(cache_len + torch.arange(S, device=q.device)[:, None], q)
+    kpos = on_mesh(torch.arange(T, device=q.device)[None, :], q)
     scores = torch.where(qpos >= kpos, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgst,bthd->bshgd", probs.to(cv.dtype), cv)
@@ -230,9 +243,11 @@ def mlp(cfg: ArchConfig, p: Params, x):
     cdt = x.dtype
     if cfg.mlp == "swiglu":
         h = F.silu(x @ p["w_gate"].to(cdt)) * (x @ p["w_up"].to(cdt))
-        return h @ p["w_down"].to(cdt)
+        h = constrain(h, ("dp", None, "tp"))
+        return constrain(h @ p["w_down"].to(cdt), ("dp", None, None))
     # jax.nn.gelu's default is the tanh approximation
-    return F.gelu(x @ p["w_in"].to(cdt), approximate="tanh") @ p["w_down"].to(cdt)
+    h = constrain(F.gelu(x @ p["w_in"].to(cdt), approximate="tanh"), ("dp", None, "tp"))
+    return constrain(h @ p["w_down"].to(cdt), ("dp", None, None))
 
 
 # --------------------------------------------------------------------------- #
@@ -299,7 +314,7 @@ def _moe_routed(cfg: ArchConfig, p: Params, x):
     pos_oh = F.one_hot(pos.long().clamp_max(C - 1), C).float() * keep[..., None]
     dispatch = torch.einsum("bske,bskc->bsec", expert_sel, pos_oh).to(cdt)  # (B,S,E,C)
     combine = torch.einsum("bsk,bske,bskc->bsec", gate_vals, expert_sel, pos_oh)  # f32
-    xe = torch.einsum("bsec,bsd->becd", dispatch, x)  # (B,E,C,d)
+    xe = constrain(torch.einsum("bsec,bsd->becd", dispatch, x), ("dp", "ep", None, None))  # (B,E,C,d)
     if cfg.mlp == "swiglu":
         h = F.silu(torch.einsum("becd,edf->becf", xe, p["w_gate"].to(cdt)))
         h = h * torch.einsum("becd,edf->becf", xe, p["w_up"].to(cdt))
@@ -307,4 +322,4 @@ def _moe_routed(cfg: ArchConfig, p: Params, x):
         h = F.gelu(torch.einsum("becd,edf->becf", xe, p["w_in"].to(cdt)), approximate="tanh")
     ye = torch.einsum("becf,efd->becd", h, p["w_down"].to(cdt))
     y = torch.einsum("bsec,becd->bsd", combine, ye.float())
-    return y.to(cdt), aux
+    return constrain(y.to(cdt), ("dp", None, None)), aux

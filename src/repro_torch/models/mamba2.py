@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from .layers import rmsnorm
 from .params import ParamDef
+from .shardctx import on_mesh
 
 CONV_WIDTH = 4
 SSM_CHUNK = 64
@@ -85,7 +86,7 @@ def _ssd_chunked(xh, a_log, B_, C_, h0, chunk: int):
     la = a_log.reshape(B, nc, L, H).cumsum(dim=2)  # cumulative log decay within a chunk
     # intra-chunk: y_intra[t] = sum_{s<=t} exp(la_t - la_s) (C_t . B_s) xh_s
     seg = la[:, :, :, None, :] - la[:, :, None, :, :]  # (B, nc, Lt, Ls, H)
-    tri = torch.ones((L, L), dtype=torch.bool, device=xh.device).tril()
+    tri = on_mesh(torch.ones((L, L), dtype=torch.bool, device=xh.device).tril(), xh)
     # mask the exponent, not the exp: exp(+big) above the diagonal would be inf
     decay = torch.exp(torch.where(tri[None, None, :, :, None], seg, -60.0))
     smat = torch.einsum("bctn,bcsn->bcts", Cc, Bc)

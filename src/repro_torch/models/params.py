@@ -21,10 +21,13 @@ Logical axis names used in specs:
   * ``sp``    — sequence-parallel axis (maps to 'model' on long-context shapes)
 
 :class:`ShardingRules` is the logical-to-mesh-axis table; the whole-model
-estimator (``repro_torch.graph``) reads it to shard its traced shapes.  The
-JAX package's ``ShardingRules.translate`` builds a jax ``PartitionSpec`` and
-waits, with the DTensor placements, for ROADMAP Queue 1 item 7; on one
-device nothing reads the specs.
+estimator (``repro_torch.graph``) reads it to shard its traced shapes, and
+:meth:`ShardingRules.translate` turns a leaf's logical spec into a
+:class:`PartitionSpec` of mesh-axis names, which
+``train.sharding.to_placements`` turns into DTensor placements on a
+``DeviceMesh``.  :func:`param_pspecs` and :func:`param_structs` give the
+blueprint's specs and its shapes (on the meta device, allocating nothing),
+as the JAX package's functions of the same names do.
 """
 from __future__ import annotations
 
@@ -63,6 +66,37 @@ class ParamDef:
         return out.mul_(self.std).to(dtype)
 
 
+def _canonical(entry):
+    if isinstance(entry, (tuple, list)):
+        return None if not entry else entry[0] if len(entry) == 1 else tuple(entry)
+    return entry
+
+
+class PartitionSpec(tuple):
+    """A tensor's layout over named mesh axes, one entry per dim: ``None``
+    (replicated), a mesh-axis name, or a tuple of names (the dim split over
+    their product, the first name outermost).  The port's stand-in for jax's
+    ``PartitionSpec``: a tuple, so it compares ``==`` with
+    ``tuple(jax_spec)`` entry by entry.  Entries are canonical as jax makes
+    them: a tuple of one name is the name, an empty one None."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (_canonical(e) for e in entries))
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+    def __getitem__(self, i):
+        out = tuple.__getitem__(self, i)
+        return PartitionSpec(*out) if isinstance(i, slice) else out
+
+
+P = PartitionSpec
+
+
 @dataclass(frozen=True)
 class ShardingRules:
     """Logical -> physical mesh-axis translation."""
@@ -72,6 +106,25 @@ class ShardingRules:
     dp: tuple[str, ...] | str | None = ("data",)
     sp: tuple[str, ...] | str | None = None  # sequence parallel (long context)
     ep: tuple[str, ...] | str | None = None  # expert parallel (hillclimb variant)
+
+    def translate(self, logical: tuple) -> PartitionSpec:
+        out = []
+        used: set[str] = set()
+        for ax in logical:
+            phys = getattr(self, ax) if ax is not None else None
+            if phys is None:
+                out.append(None)
+                continue
+            names = (phys,) if isinstance(phys, str) else tuple(phys)
+            free = tuple(n for n in names if n not in used)
+            used.update(free)
+            if not free:
+                out.append(None)  # a mesh axis can shard only one dim
+            elif len(free) == 1:
+                out.append(free[0])
+            else:
+                out.append(free)
+        return PartitionSpec(*out)
 
 
 SINGLE_POD_RULES = ShardingRules(fsdp=("data",), tp="model", dp=("data",))
@@ -107,6 +160,18 @@ def init_params(
     leaf passes through the host."""
     dev = resolve_device(device)
     return tree_map(lambda d: d.materialize(generator, dev, dtype), defs)
+
+
+def param_structs(defs, dtype: torch.dtype = torch.float32):
+    """The blueprint's tree of tensors on the meta device: shapes and
+    dtype, no storage (the JAX package's ``ShapeDtypeStruct`` tree)."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=dtype, device="meta"), defs)
+
+
+def param_pspecs(defs, rules: ShardingRules):
+    """The blueprint's tree of :class:`PartitionSpec`, each leaf's logical
+    spec translated by ``rules``."""
+    return tree_map(lambda d: rules.translate(d.spec), defs)
 
 
 def param_count(defs) -> int:

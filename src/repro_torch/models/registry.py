@@ -43,6 +43,9 @@ from .layers import (apply_norm, attention_block, attention_defs, mlp, mlp_defs,
 from .mamba2 import CONV_WIDTH, mamba2_block, mamba2_defs
 from .params import ParamDef, init_params, stack_blueprint, tree_map
 from .rwkv6 import rwkv6_block, rwkv6_defs
+from .shardctx import constrain, is_dtensor, kernel_placements, on_mesh, shard_local
+
+DP = ("dp", None, None)  # activations (B, S, d): the batch over the dp axes
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -113,6 +116,46 @@ def _group(state: Mapping[str, torch.Tensor], prefix: str) -> nn.ParameterDict:
     """The entries ``<prefix>.<name>`` of ``state`` as a ParameterDict."""
     n = len(prefix) + 1
     return nn.ParameterDict({k[n:]: _param(v) for k, v in state.items() if k.startswith(prefix + ".")})
+
+
+def _by_batch(fn, args: tuple, batched: tuple, out_ndims: tuple):
+    """``fn`` on DTensors, each device taking its rows of the batch (dim 0
+    of every ``batched`` argument and output, over the dp axes where it
+    divides) and everything else whole, through ``local_map``: the
+    backward then runs on local tensors too (the backward of a DTensor
+    gather, ``index_put``, has no sharding rule that every supported
+    PyTorch version gets right).  Plain tensors: ``fn`` itself."""
+    ref = args[batched.index(True)]
+    if not is_dtensor(ref):
+        return fn(*args)
+    mesh, batch = ref.device_mesh, ref.shape[0]
+
+    def layout(ndim: int, rows: bool) -> list:
+        return kernel_placements(mesh, ndim, (0, batch) if rows else None, (), 0)
+
+    outs = tuple(layout(n, True) for n in out_ndims)
+    return shard_local(fn, args, tuple(layout(a.dim(), b) for a, b in zip(args, batched)),
+                       outs if len(outs) > 1 else outs[0])
+
+
+def _gather_rows(table, tokens):
+    return table[tokens]
+
+
+def _rows_of(table, tokens):
+    """``table[tokens]``: the embedding rows of (B, S) ids, the table whole
+    on every device."""
+    return _by_batch(_gather_rows, (table, tokens), (False, True), (3,))
+
+
+def _terms(logits, labels):
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse, logits.gather(-1, labels[..., None].long())[..., 0]
+
+
+def _token_terms(logits, labels):
+    """(log-sum-exp, the label's logit) of every token: (B, S) each."""
+    return _by_batch(_terms, (logits, labels), (True, True), (2, 2))
 
 
 class DenseBlock(nn.Module):
@@ -249,7 +292,7 @@ class LM(nn.Module):
         cdt = _dtype(self.cfg.compute_dtype)
         # gather the rows first, then cast: the JAX package casts the whole
         # table before its gather, which gives the same values
-        h = self.embed[tokens].to(cdt)
+        h = constrain(_rows_of(self.embed, tokens).to(cdt), DP)
         if self.frontend_proj is not None and frontend_embeds is not None:
             proj = frontend_embeds.to(cdt) @ self.frontend_proj.to(cdt)
             h[:, :proj.shape[1]] = proj
@@ -277,20 +320,23 @@ class LM(nn.Module):
         if remat and cfg.family == "hybrid":
             for g in range(cfg.n_layers // cfg.shared_attn_period):
                 h = checkpoint(self._hybrid_group, g, h, positions, use_reentrant=False)
-            return h, torch.zeros((), dtype=torch.float32, device=h.device)
+            return h, on_mesh(torch.zeros((), dtype=torch.float32, device=h.device), h)
         auxs = []
         for i, block in enumerate(self.blocks):
             if cfg.family == "ssm":
                 st = None if cache is None else {"shift_tm": cache.shift_tm[i],
                                                  "shift_cm": cache.shift_cm[i], "s": cache.s[i]}
+                h = constrain(h, DP)
                 h, new = checkpoint(block, h, None, use_reentrant=False) if remat else block(h, st)
+                h = constrain(h, DP)
                 if cache is not None:
                     cache.shift_tm[i].copy_(new["shift_tm"])
                     cache.shift_cm[i].copy_(new["shift_cm"])
                     cache.s[i].copy_(new["s"])
             elif cfg.family == "hybrid":
                 st = None if cache is None else {"h": cache.h[i], "conv": cache.conv[i]}
-                h, new = block(h, st)
+                h, new = block(constrain(h, DP), st)
+                h = constrain(h, DP)
                 if cache is not None:
                     cache.h[i].copy_(new["h"])
                     cache.conv[i].copy_(new["conv"])
@@ -301,14 +347,16 @@ class LM(nn.Module):
                     h, _, _ = self.shared_attn(h, positions, kv)
             else:
                 kv = None if cache is None else {"k": cache.k[i], "v": cache.v[i], "len": cache.length}
+                h = constrain(h, DP)
                 if remat:
                     h, aux, _ = checkpoint(block, h, positions, None, use_reentrant=False)
                 else:
                     h, aux, _ = block(h, positions, kv)
+                h = constrain(h, DP)
                 auxs.append(aux)
         if cfg.moe is not None:
             return h, torch.stack(auxs).mean()
-        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+        return h, on_mesh(torch.zeros((), dtype=torch.float32, device=h.device), h)
 
     def _kv(self, cache) -> Optional[KVCache]:
         """The attention cache inside ``cache``, None for the ssm family."""
@@ -324,7 +372,7 @@ class LM(nn.Module):
         aux loss () f32)."""
         B, S = tokens.shape
         h = self._embed(tokens, frontend_embeds)
-        positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+        positions = on_mesh(torch.arange(S, device=tokens.device)[None, :].expand(B, S), tokens)
         h, aux = self._run_blocks(h, positions)
         return self._head(apply_norm(self.cfg, self.final_norm, h)), aux
 
@@ -334,8 +382,7 @@ class LM(nn.Module):
         the config has a frontend.  Differentiable: the train step
         (``train/step.py``) takes its gradient."""
         logits, aux = self.forward(batch["tokens"], batch.get("frontend_embeds"))
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
+        lse, picked = _token_terms(logits, batch["labels"])
         ce = -(picked - lse).mean()
         z = lse.square().mean()
         return ce + 1e-4 * z + 1e-2 * aux, {"ce": ce, "aux": aux, "zloss": z}
@@ -373,7 +420,7 @@ class LM(nn.Module):
         B, S = tokens.shape
         h = self._embed(tokens)
         kv = self._kv(cache)
-        positions = None if kv is None else torch.full((B, 1), kv.length, device=tokens.device)
+        positions = None if kv is None else on_mesh(torch.full((B, 1), kv.length, device=tokens.device), tokens)
         h, _ = self._run_blocks(h, positions, cache)
         if kv is not None:
             kv.length += S

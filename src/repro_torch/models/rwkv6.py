@@ -30,6 +30,7 @@ from ..kernels.wkv import wkv
 from ..kernels.wkv.kernel import CHUNKS
 from .layers import layernorm, rmsnorm
 from .params import ParamDef
+from .shardctx import is_dtensor, kernel_placements, on_mesh, shard_local
 
 DECAY_LORA = 64
 # S is padded to a multiple of the shortest compiled chunk, the one
@@ -81,7 +82,22 @@ def wkv_heads(r, k, v, wlog, u, s0):
 
     Returns (out (B, S, H, K), s_final (B, H, K, K)).  S > 1 runs the
     chunked kernel on rows ``b H + h`` with S padded to a multiple of
-    ``WKV_PAD``; S = 1 is one step of the recurrence."""
+    ``WKV_PAD``; S = 1 is one step of the recurrence.
+
+    DTensors go to the kernel as their local shards, split before the
+    (B, H) rows are flattened: the batch over the dp axes and the heads
+    over tp, each where it divides."""
+    if is_dtensor(r):
+        B, _, H, _ = r.shape
+        mesh = r.device_mesh
+        x4 = kernel_placements(mesh, 4, (0, B), (H,), 2)  # (B, S, H, K), and s (B, H, K, K)
+        st = kernel_placements(mesh, 4, (0, B), (H,), 1)
+        hu = kernel_placements(mesh, 2, None, (H,), 0)  # u (H, K)
+        return shard_local(_wkv_heads, (r, k, v, wlog, u, s0), (x4, x4, x4, x4, hu, st), (x4, st))
+    return _wkv_heads(r, k, v, wlog, u, s0)
+
+
+def _wkv_heads(r, k, v, wlog, u, s0):
     B, S, H, K = r.shape
     if S == 1:
         r_t, k_t, v_t, w_t = (a[:, 0] for a in (r, k, v, wlog))  # (B, H, K)
@@ -128,7 +144,7 @@ def rwkv6_block(cfg: ArchConfig, p: Mapping, x, state: Optional[dict] = None):
     s0 = (
         state["s"].float()
         if state is not None
-        else torch.zeros((B, H, K, K), dtype=torch.float32, device=x.device)
+        else on_mesh(torch.zeros((B, H, K, K), dtype=torch.float32, device=x.device), x)
     )
     out, s_final = wkv_heads(r.float(), k.float(), v.float(), wlog, u, s0)
     out = out.reshape(B, S, d)

@@ -66,7 +66,12 @@ def wsd_schedule(
 
 
 def _count(params: Tensors) -> torch.Tensor:
-    return torch.zeros((), dtype=torch.int64, device=next(iter(params.values())).device)
+    """The step count, 0; replicated on the parameters' mesh where they are
+    DTensors."""
+    from ..models.shardctx import on_mesh
+
+    p = next(iter(params.values()))
+    return on_mesh(torch.zeros((), dtype=torch.int64, device=p.device), p)
 
 
 # --------------------------------------------------------------------------- #

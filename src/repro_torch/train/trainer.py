@@ -18,22 +18,38 @@ here they are the model's own at the start of :meth:`Trainer.fit` (from
 the state a restart returns to before the first checkpoint.  The state is
 ``{"params": the model's named parameters, "opt_state": the optimizer's}``,
 updated in place; a step's wall time ends after ``torch.cuda.synchronize``
-on the card.  The JAX trainer's mesh and shape go: one device, and the
-dataset gives the batch its shape.
+on the card.
+
+``mesh`` and ``shape`` are keywords (default: one device, and the dataset
+gives the batch its shape).  With a ``DeviceMesh``, as the JAX trainer
+does: the parameters are laid out on it by their blueprint specs (when the
+step is made), the optimizer state by theirs (at the first step), each
+batch is built whole and split by ``batch_pspecs`` (``data.to_mesh``), the
+step runs under ``sharding_ctx``, and a restart restores the checkpoint
+with the placements of the current mesh.  Checkpoints are written whole by
+rank 0.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
-from ..checkpoint.manager import AsyncCheckpointer, latest_step, restore
-from ..data.pipeline import SyntheticTokenDataset, to_device
+from ..checkpoint.manager import AsyncCheckpointer, latest_step, place_like, restore
+from ..configs.base import ShapeConfig
+from ..data.pipeline import SyntheticTokenDataset, to_device, to_mesh
 from ..models.registry import LM
+from ..models.shardctx import is_dtensor
 from ..optim.optimizers import Optimizer
+from .sharding import batch_pspecs, rules_for_mesh
 from .step import make_train_step
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s whole value: a DTensor gathered."""
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 @dataclass
@@ -53,9 +69,14 @@ class Trainer:
     tcfg: TrainerConfig
     fault_hook: Optional[Callable[[int], None]] = None  # raises to inject faults
     log: list = field(default_factory=list)
+    mesh: Any = None  # a DeviceMesh; None: one device
+    shape: Optional[ShapeConfig] = None  # sizes the batch specs; None: the dataset's
 
     def __post_init__(self):
-        self.step_fn = make_train_step(self.model, self.optimizer, self.tcfg.peak_lr)
+        self.step_fn = make_train_step(self.model, self.optimizer, self.mesh, self.shape,
+                                       peak_lr=self.tcfg.peak_lr)
+        if self.mesh is not None:
+            self.rules = rules_for_mesh(self.mesh)
         self.params = dict(self.model.named_parameters())
         self.ckpt = AsyncCheckpointer(self.tcfg.ckpt_dir, keep=self.tcfg.keep)
         self.stragglers = 0
@@ -73,18 +94,26 @@ class Trainer:
         if step is None:
             loaded = {"params": initial, "opt_state": None}
         else:
-            loaded = restore(self.tcfg.ckpt_dir, step, state)
+            loaded = restore(self.tcfg.ckpt_dir, step, state)  # laid out as the state is
         with torch.no_grad():
             for n, p in self.params.items():
-                p.copy_(loaded["params"][n])
+                src = loaded["params"][n]
+                p.copy_(place_like(src, p) if is_dtensor(p) and not is_dtensor(src) else src)
         opt_state = loaded["opt_state"] or self.optimizer.init(self.params)
         return step or 0, {"params": self.params, "opt_state": opt_state}
+
+    def _batch(self, dataset: SyntheticTokenDataset, step: int, device) -> dict:
+        """The step's batch on the device, or split over the mesh."""
+        if self.mesh is None:
+            return to_device(dataset.batch(step), device)
+        shape = self.shape or ShapeConfig("dataset", dataset.seq_len, dataset.global_batch, "train")
+        return to_mesh(dataset.batch(step), self.mesh, batch_pspecs(self.model.cfg, shape, self.mesh, self.rules))
 
     # ------------------------------------------------------------------ #
     def fit(self, dataset: SyntheticTokenDataset, n_steps: int, resume: bool = True) -> dict:
         device = self.model.device
         state = {"params": self.params, "opt_state": self.optimizer.init(self.params)}
-        initial = {n: p.detach().to("cpu", copy=True) for n, p in self.params.items()}
+        initial = {n: _whole(p).detach().to("cpu", copy=True) for n, p in self.params.items()}
         start = 0
         if resume:
             start, state = self._restore(state)
@@ -92,13 +121,13 @@ class Trainer:
         ema = None
         retries = 0
         while step < n_steps:
-            batch = to_device(dataset.batch(step), device)
+            batch = self._batch(dataset, step, device)
             t0 = time.perf_counter()
             try:
                 if self.fault_hook is not None:
                     self.fault_hook(step)
                 metrics = self.step_fn(state["opt_state"], batch)
-                loss = float(metrics["loss"])
+                loss = float(_whole(metrics["loss"]))
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 retries = 0
@@ -117,7 +146,7 @@ class Trainer:
                 self.log.append({"event": "straggler", "step": step, "dt": dt})
             ema = dt if ema is None else 0.9 * ema + 0.1 * dt
             self.log.append({"event": "step", "step": step, "loss": loss,
-                             "grad_norm": float(metrics["grad_norm"]), "dt": dt})
+                             "grad_norm": float(_whole(metrics["grad_norm"])), "dt": dt})
             step += 1
             if step % self.tcfg.ckpt_every == 0 or step == n_steps:
                 self.ckpt.save(step, state)

@@ -73,6 +73,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "repro_torch.launch.train", "repro_torch.launch.mesh",
                  "repro_torch.core.record", "repro_torch.core.hlo_analysis",
                  "repro_torch.frontend.builders", "repro_torch.models.shardctx",
+                 "repro_torch.train.sharding",
                  "repro_torch.obs.metrics", "repro_torch.obs.trace",
                  "repro_torch.explore.registry", "repro_torch.explore.study",
                  "repro_torch.explore.cli", "repro_torch.graph.dag",
