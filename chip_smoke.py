@@ -77,7 +77,30 @@ Phases, one JSON line each:
    measured GLup/s, the passes' own tau, the predicted winner's measured
    rank, its time over the fastest one's and the top-5 overlap per kernel
    (every configuration's figures in ``results/rank_check.json``);
-7. serve   — ``repro_torch.launch.serve.serve`` on the card at full width:
+7. explore — the exploration (``repro_torch.explore``) on the H100 model
+   (``"h100"``): ``Study`` over the 162 stencil and the 49 LBM
+   configurations of the paper spaces, each cold into a JSONL store and an
+   alias store under ``build/explore/``, then warm, with the host seconds of
+   each; fails unless the warm run serves every configuration from the
+   store and opens no ``study.trace_ir`` span, and unless each
+   configuration's predicted GLup/s equals ``ops.rank_configs``' at the main
+   path's grid and the ``Study``'s order is that ranking's, best first (the
+   line counts the groups of equal GLup/s, where the ``Study`` orders by
+   descending IR fingerprint and ``select_block`` takes the first in space
+   order).  A ``SuccessiveHalving`` search (budget 54, seed 0) of the
+   stencil space: its configurations estimated, host seconds and Pareto
+   recall against the sweep's front, and whether its best is the sweep's.
+   Then the path on the card: the stencil ``Study``'s top 1, the search's
+   best and the LBM ``Study``'s top 1, each launched once at the paper grid
+   through ``stencil25_cuda`` or ``lbm_d3q15_cuda`` (counts zeroed before,
+   read after: each must launch), held against the plain version over the
+   whole grid (f64, 1e-10) and timed as phase ``main`` times, beside phase
+   ``rank``'s fastest configuration (``pick_over_best``) and beside the
+   seconds phase ``rank`` spent checking and timing every configuration.
+   Last, the estimation daemon on 127.0.0.1 (a free port): the 162 stencil
+   configurations posted cold, then warm ten times, its records held equal
+   to the sweep's, the warm queries per second, and the daemon stopped;
+8. serve   — ``repro_torch.launch.serve.serve`` on the card at full width:
    Qwen2.5-14B (all 48 layers, f32 parameters, bf16 compute), RWKV6-1.6B
    (all 24 layers), StableLM-12B (all 40 layers, head dim 160),
    MusicGen-large (all 48, head dim 64), LLaVA-NeXT-34B (24 of 60 layers,
@@ -100,7 +123,7 @@ Phases, one JSON line each:
    plain version's reading against an f64 one beside it.  Prefill and
    decode times (CUDA events), tokens per second, peak memory and the
    decode step against its weight-bytes bound;
-8. train   — ``train_olmo``: ``Trainer.fit`` on OLMo-1B at full width and
+9. train   — ``train_olmo``: ``Trainer.fit`` on OLMo-1B at full width and
    depth (16 layers, d 2048, f32 parameters and AdamW moments, bf16
    compute, remat) at ``train_4k``'s sequence of 4096 and a global batch of
    4 of its 256 (``launch.one_card``), 6 steps from seed 0, a checkpoint
@@ -132,7 +155,7 @@ Phases, one JSON line each:
    f32 (``kernel_f64_states_vs_f64``: what the forward's states add); two
    launches must give the same bits, and the backward is timed against its
    bound; warm median step, tokens per second, peak memory;
-9. sharded — a one-rank NCCL process group (a ``HashStore``: no network)
+10. sharded — a one-rank NCCL process group (a ``HashStore``: no network)
    and a (1, 1) ``DeviceMesh`` (``launch.mesh.make_test_mesh``) on the
    card, then two paths through the DTensor placements
    (``train/sharding.py``): ``train_sharded``, ``Trainer.fit`` with
@@ -150,7 +173,7 @@ Phases, one JSON line each:
    layer, the decode none, and the tokens equal ``serve_rwkv``'s; prefill,
    cache-fill and decode times beside ``serve_rwkv``'s, and peak memory.
    The group is destroyed at the end;
-10. step_time — the whole-model estimator, ``repro_torch.graph.step_time``
+11. step_time — the whole-model estimator, ``repro_torch.graph.step_time``
    on ``"h100"``, for each full-width path above with that path's own
    config (its depth cut included), batch, sequence and kind: the seven
    serve paths' prefills (batch 4, seq 512, ``forward``), ``train_olmo`` and
@@ -182,6 +205,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -203,7 +227,11 @@ from repro_torch.kernels.attention import kernel as attn_kernel  # noqa: E402
 from repro_torch.kernels.lbm_d3q15 import kernel as lbm_kernel  # noqa: E402
 from repro_torch.kernels.stencil25 import kernel as st_kernel  # noqa: E402
 from repro_torch.kernels.wkv import kernel as wkv_kernel  # noqa: E402
+from repro_torch import explore  # noqa: E402
 from repro_torch.core.machine import H100_SXM  # noqa: E402
+from repro_torch.explore import search as explore_search  # noqa: E402
+from repro_torch.explore import serve as explore_serve  # noqa: E402
+from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.core.waves import wave_size  # noqa: E402
 from repro_torch.kernels.stencil25.ref import star_offsets, star_weights_np  # noqa: E402
 from repro_torch.configs import SHAPES, get_arch  # noqa: E402
@@ -300,6 +328,9 @@ SERVE = {  # main path: (config, the kernel its prefill must launch once per att
 }
 SERVE_SHAPE = {"requests": one_card.SERVE_REQUESTS, "prompt_len": one_card.SERVE_PROMPT_LEN, "steps": 16}
 STEP_TIME_MACHINE = "h100"  # the whole-model estimator's model of the card
+EXPLORE_MACHINE = "h100"  # the exploration's machine model of the card
+EXPLORE_BUDGET = 54  # SuccessiveHalving's full estimates: a third of the 162 stencil configurations
+EXPLORE_WARM_POSTS = 10  # warm posts of the 162 stencil configurations to the daemon
 # text tokens after the frontend's stub embeddings (n_frontend_tokens of
 # frontend_dim) in the forward of a served config with a frontend
 FRONTEND_TEXT_TOKENS = 256
@@ -999,6 +1030,230 @@ def phase_rank() -> dict:
     emit({"phase": "rank", **res})
     gc.collect()
     torch.cuda.empty_cache()
+    return res
+
+
+def ranking_ties(study_records, ranking) -> dict:
+    """The ``Study``'s order against ``ops.rank_configs``' (select_block's
+    ranking at the main path's grid, in space order): each configuration's
+    predicted GLup/s must be the same number in both, and the ``Study``'s
+    order must be the ranking sorted best first, where the two may differ
+    only inside a group of equal GLup/s.  Returns the comparison; fails the
+    run where they disagree."""
+    def ident(cfg):
+        return (tuple(cfg["block"]), tuple(cfg["fold"]))
+
+    pred = {ident(cfg): p.glups for cfg, _, p in ranking}
+    got = [(ident(r.config), r.metrics["glups"]) for r in study_records]
+    if sorted(c for c, _ in got) != sorted(pred) or any(pred[c] != g for c, g in got):
+        fail("explore: the Study's predictions differ from ops.rank_configs'")
+    want = sorted(pred.items(), key=lambda item: -item[1])  # stable: ties in space order
+    if [g for _, g in got] != [g for _, g in want]:
+        fail("explore: the Study's order is not ops.rank_configs' order by predicted GLup/s")
+    groups = {}
+    for (c, g), (w, _) in zip(got, want):
+        groups.setdefault(g, ([], []))
+        groups[g][0].append(c)
+        groups[g][1].append(w)
+    tied = {g: cw for g, cw in groups.items() if len(cw[0]) > 1}
+    if any(sorted(a) != sorted(b) for a, b in tied.values()):
+        fail("explore: a group of equal GLup/s holds other configurations in the Study")
+    return {"tie_groups": len(tied),
+            "configs_in_ties": sum(len(a) for a, _ in tied.values()),
+            "ties_ordered_alike": all(a == b for a, b in tied.values()),
+            "top_tied": len(groups[got[0][1]][0]) > 1,
+            "study_top": list(got[0][0]), "select_block_top": list(want[0][0]),
+            "study_breaks_ties_by": "descending canonical AccessIR fingerprint (sort_records)",
+            "select_block_breaks_ties_by": "first in space order (max over rank_configs)"}
+
+
+def explore_sweeps(root: Path) -> dict:
+    """Step 1 of phase explore: each paper space through ``Study`` on the
+    H100 model, cold into a JSONL store and an alias store under ``root``,
+    then warm.  The warm run must serve every configuration from the store
+    and trace no IR."""
+    out = {}
+    for kernel in ("stencil25", "lbm_d3q15"):
+        kw = dict(machine=EXPLORE_MACHINE, store=root / f"{kernel}.jsonl", alias=root / f"{kernel}_alias.jsonl")
+        t0 = time.perf_counter()
+        cold = explore.Study(kernel, **kw).result()
+        cold_s = time.perf_counter() - t0
+        tracer = obs_trace.enable()
+        try:
+            t0 = time.perf_counter()
+            warm = explore.Study(kernel, **kw).result()
+            warm_s = time.perf_counter() - t0
+            spans = tracer.span_names()
+        finally:
+            obs_trace.disable()
+        n = cold.stats.candidates
+        if not (cold.stats.evaluated == n and warm.stats.cache_hits == n and warm.stats.evaluated == 0):
+            fail(f"explore: {kernel}'s warm sweep did not serve every configuration from the store")
+        if "study.trace_ir" in spans:
+            fail(f"explore: {kernel}'s warm sweep traced IR")
+        if [r.metrics for r in warm.records] != [r.metrics for r in cold.records]:
+            fail(f"explore: {kernel}'s warm records differ from its cold ones")
+        ranking = (stencil25.rank_configs(STENCIL_SHAPE, 4, torch.float64, H100_SXM) if kernel == "stencil25"
+                   else lbm.rank_configs(LBM_SHAPE, torch.float64, H100_SXM))
+        out[kernel] = {"result": cold, "configs": n, "cold_s": cold_s, "warm_s": warm_s,
+                       "warm_cache_hits": warm.stats.cache_hits,
+                       "order": ranking_ties(cold.records, ranking)}
+    return out
+
+
+def explore_run_pick(kernel: str, cfg: dict, inputs: dict) -> dict:
+    """Launch one pick at the paper grid, hold it against the plain
+    version (f64, 1e-10 over the whole grid) and time it as phase main
+    does.  Returns the reading; the caller has counted the launch."""
+    block, fold = tuple(cfg["block"]), tuple(cfg["fold"])
+    if kernel == "stencil25":
+        src = inputs["src"]
+        err = max_err(st_kernel.stencil25_cuda(src, 4, block, fold), inputs["plain"])
+        ms = time_ms(lambda: st_kernel.stencil25_cuda(src, 4, block, fold))
+        cells = src.numel()
+    else:
+        f0, phase0, vel = inputs["fields"]
+        fo, po = lbm_kernel.lbm_d3q15_cuda(f0, phase0, vel, block=block)
+        err = max(max_err(fo, inputs["plain"][0]), max_err(po, inputs["plain"][1]))
+        del fo, po
+        ms = time_ms(lambda: lbm_kernel.lbm_d3q15_cuda(f0, phase0, vel, block=block))
+        cells = phase0.numel()
+    return {"block": list(block), "fold": list(fold), "max_abs_err": err, "ms": ms,
+            "measured_glups": cells / ms / 1e6}
+
+
+def beside_rank(rank_file: dict, kernel: str, pick: dict) -> dict:
+    """The pick beside phase rank's records of the same space: the fastest
+    configuration's time there, the pick's own time and measured rank
+    there, and ``pick_over_best`` (this phase's time of the pick over that
+    fastest time)."""
+    recs = rank_file["configs"][kernel]
+    kind = "staged" if kernel == "stencil25" else "kernel"
+    ms = [r[kind]["ms"] for r in recs]
+    best = min(range(len(ms)), key=ms.__getitem__)
+    mine = next(i for i, r in enumerate(recs) if r["block"] == pick["block"] and r["fold"] == pick["fold"])
+    return {"rank_best_ms": ms[best], "rank_best": {"block": recs[best]["block"], "fold": recs[best]["fold"]},
+            "rank_pick_ms": ms[mine], "rank_pick_measured_rank": sorted(ms).index(ms[mine]),
+            "pick_over_best": pick["ms"] / ms[best]}
+
+
+def explore_daemon(sweep) -> dict:
+    """Step 4: the estimation daemon on 127.0.0.1 (a free port), the 162
+    stencil configurations posted cold and then warm; its records must
+    equal the sweep's."""
+    root = ROOT / "build" / "explore" / "serve"
+    server, service = explore_serve.serve(host="127.0.0.1", port=0, root=str(root))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    client = explore_serve.ServeClient("127.0.0.1", server.server_address[1])
+    try:
+        configs = [r.config for r in sweep.records]
+        t0 = time.perf_counter()
+        cold = client.estimate("stencil25", configs, machine=EXPLORE_MACHINE)
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm = [client.estimate("stencil25", configs, machine=EXPLORE_MACHINE) for _ in range(EXPLORE_WARM_POSTS)]
+        warm_s = time.perf_counter() - t0
+        health = client.health()
+    finally:
+        client.shutdown()
+        client.close()
+        thread.join(timeout=30)
+        server.server_close()
+        service.close()
+    if thread.is_alive():
+        fail("explore: the daemon did not stop")
+    n = len(configs)
+    if cold["stats"]["estimated"] != n or any(w["stats"]["store_hits"] != n for w in warm):
+        fail(f"explore: the daemon's cold and warm stats are off: {cold['stats']}, {warm[-1]['stats']}")
+    want = {r.fingerprint: r for r in sweep.records}
+    for resp in [cold] + warm:
+        for wire in resp["records"]:
+            rec = want.get(wire["fingerprint"])
+            if rec is None or (json.dumps(wire["config"]), wire["metrics"], wire["volumes"], wire["time_s"],
+                               wire["limiter"], wire["feasible"]) != (
+                    json.dumps(rec.config, default=list), rec.metrics, rec.volumes, rec.time_s,
+                    rec.limiter, rec.feasible):
+                fail("explore: the daemon's records differ from the Study's")
+    return {"configs": n, "cold_s": cold_s, "warm_posts": EXPLORE_WARM_POSTS,
+            "warm_queries_per_s": n * EXPLORE_WARM_POSTS / warm_s, "health_ok": health["ok"]}
+
+
+def phase_explore(rank: dict) -> dict:
+    """The exploration (``repro_torch.explore``) on the H100 model, and its
+    picks on the card, as the module docstring says."""
+    root = ROOT / "build" / "explore"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    sweeps = explore_sweeps(root)
+    stencil_sweep = sweeps["stencil25"]["result"]
+    t0 = time.perf_counter()
+    searched = explore.Study("stencil25", machine=EXPLORE_MACHINE).run(
+        search=explore_search.SuccessiveHalving(budget=EXPLORE_BUDGET, seed=0))
+    search_s = time.perf_counter() - t0
+    found = searched.result()
+    stats = searched.search_stats
+    search = {"budget": EXPLORE_BUDGET, "seed": 0, "seconds": search_s, "pool": stats.pool,
+              "proxy_evaluated": stats.proxy_evaluated, "full_selected": stats.full_selected,
+              "pareto_recall": explore_search.pareto_recall(found.records, stencil_sweep.pareto()),
+              "best_equals_exhaustive": found.top(1)[0].config == stencil_sweep.top(1)[0].config,
+              "best_glups_equals_exhaustive": found.top(1)[0].metrics["glups"]
+              == stencil_sweep.top(1)[0].metrics["glups"]}
+    picks = {"stencil25": sweeps["stencil25"]["result"].top(1)[0].config,
+             "search": found.top(1)[0].config,
+             "lbm_d3q15": sweeps["lbm_d3q15"]["result"].top(1)[0].config}
+    host_s = time.perf_counter() - t_phase
+
+    # --- the picks on the card: the path, counted ---------------------------
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    src = torch.randn(STENCIL_SHAPE, generator=gen, device="cuda", dtype=torch.float64)
+    fields = lbm.init_fields(LBM_SHAPE, seed=0, dtype=torch.float64)
+    torch.cuda.synchronize()
+    zero_counts()
+    seen = {}
+    for name, cfg in picks.items():
+        counter = st_kernel.stencil25_cuda if name != "lbm_d3q15" else lbm_kernel.lbm_d3q15_cuda
+        before = counter.launches
+        if name == "lbm_d3q15":
+            lbm_kernel.lbm_d3q15_cuda(*fields, block=tuple(cfg["block"]))
+        else:
+            st_kernel.stencil25_cuda(src, 4, tuple(cfg["block"]), tuple(cfg["fold"]))
+        seen[name] = counter.launches - before
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if not all(seen.values()) or not (launches["stencil25"] and launches["lbm_d3q15"]):
+        fail(f"explore: a pick did not launch its kernel: {seen}, {launches}")
+
+    # --- held against the plain versions, timed, beside phase rank ----------
+    rank_file = json.loads((ROOT / "results" / "rank_check.json").read_text())
+    runs = {}
+    for kernel, names in (("stencil25", ("stencil25", "search")), ("lbm_d3q15", ("lbm_d3q15",))):
+        inputs = ({"src": src, "plain": stencil25.stencil25_plain(src, 4)} if kernel == "stencil25"
+                  else {"fields": fields, "plain": lbm.lbm_step_plain(*fields)})
+        for name in names:
+            runs[name] = explore_run_pick(kernel, picks[name], inputs)
+            runs[name].update(beside_rank(rank_file, kernel, runs[name]))
+        del inputs
+    del src, fields
+    gc.collect()
+    torch.cuda.empty_cache()
+    daemon = explore_daemon(stencil_sweep)
+    parts = rank["seconds_by_part"]
+    autotune = {k: parts[f"{k}_check"] + parts[f"{k}_timing"] for k in ("stencil", "lbm")}
+    res = {"phase": "explore", "machine": EXPLORE_MACHINE, "host_s": host_s,
+           "sweeps": {k: {kk: vv for kk, vv in v.items() if kk != "result"} for k, v in sweeps.items()},
+           # phase rank's seconds checking and timing every configuration
+           # (the stencil's on both of its kernels), and its whole run
+           "rank_phase_s": {"stencil25": autotune["stencil"], "lbm_d3q15": autotune["lbm"],
+                            "total": rank["seconds"]},
+           "study_cold_s": {k: v["cold_s"] for k, v in sweeps.items()},
+           "search": search, "picks": runs, "launches": launches, "daemon": daemon,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    bad = {n: r["max_abs_err"] for n, r in runs.items() if not r["max_abs_err"] <= TOL[torch.float64]}
+    if bad:
+        fail(f"explore: picks disagree with the plain versions: {bad}")
     return res
 
 
@@ -1877,7 +2132,7 @@ def main() -> int:
     phase_check()
     main_results = phase_main_paper()
     phase_probe(probe_libs)
-    phase_rank()
+    explored = phase_explore(phase_rank())
     main_results += [phase_main_attention(), phase_main_wkv()]
     served = {path: phase_main_serve(path) for path in SERVE}
     train = phase_train_olmo()
@@ -1886,6 +2141,8 @@ def main() -> int:
     phase_step_time(served, trains)
     for r in main_results:  # launches over every main path that runs the kernel
         r["launches_by_path"] = {OWN_PATH[r["name"]]: r["launches"]}
+        if explored["launches"][r["name"]]:
+            r["launches_by_path"]["explore"] = explored["launches"][r["name"]]
         for path, res in served.items():
             if res["launches"][r["name"]]:
                 r["launches_by_path"][path] = res["launches"][r["name"]]

@@ -21,15 +21,20 @@ operation for operation so that results stay bit-identical to it:
   equal the reference's and the float assembly is the same
   :func:`_estimate_one`, so its results equal :func:`estimate`'s bit for bit.
 
-:class:`GPUAnalyticEstimator` puts :func:`estimate_many` and the model's
-prediction behind the ``estimate_batch`` protocol of ``core/record.py``; the
-whole-model estimator (``repro_torch.graph``) prices its kernels through it.
+A third, :func:`estimate_many_machines`, runs one batch on several machines
+at once: each configuration's wave footprints for every machine come from one
+symbolic pass (:func:`_warm_wave_sets`), and each estimate equals the
+per-machine :func:`estimate_many`'s bit for bit.
 
-``tests/test_torch_estimator.py``, ``tests/test_torch_estimate_many.py`` and
-``tests/test_torch_graph.py`` hold all three `==` to ``repro.core``.  The JAX
-package's multi-machine batch (``estimate_many_machines``,
-``estimate_batch_machines``) is not part of the port: ``estimate_batch``
-does not reach it.
+:class:`GPUAnalyticEstimator` puts :func:`estimate_many` and the model's
+prediction behind the ``estimate_batch`` protocol of ``core/record.py``
+(``estimate_batch_machines`` for several machines); the exploration
+(``repro_torch.explore``) and the whole-model estimator
+(``repro_torch.graph``) price their kernels through it.
+
+``tests/test_torch_estimator.py``, ``tests/test_torch_estimate_many.py``,
+``tests/test_torch_graph.py`` and ``tests/test_torch_explore.py`` hold them
+`==` to ``repro.core``.
 """
 from __future__ import annotations
 
@@ -525,12 +530,12 @@ class GPUAnalyticEstimator:
     """The paper-§III pipeline behind the backend-agnostic
     :class:`~repro_torch.core.record.Estimator` protocol.
 
-    ``estimate_batch`` consumes element-granular
-    :class:`~repro_torch.frontend.ir.AccessIR` objects (lowering each to a
-    :class:`KernelSpec`), runs the batched :func:`estimate_many` plus the
-    multi-limiter prediction, and returns
-    :class:`~repro_torch.core.record.EstimateRecord` rows stamped with
-    ``{"name": ir.name, **ir.meta}``.
+    ``estimate_batch`` consumes element-granular :class:`~repro_torch.frontend.ir.AccessIR`
+    objects (lowering each to a :class:`KernelSpec` unless the caller supplies
+    prelowered ``specs``), runs the batched :func:`estimate_many` fast path plus
+    the multi-limiter prediction, and returns unified
+    :class:`~repro_torch.core.record.EstimateRecord` rows, the schema the
+    exploration's store and ``Study`` consume.
     """
 
     backend = "gpu"
@@ -545,7 +550,9 @@ class GPUAnalyticEstimator:
         irs: Sequence,
         machine: GPUMachine,
         *,
+        configs: Sequence[dict] | None = None,
         cache: EstimateCache | None = None,
+        specs: Sequence[KernelSpec | None] | None = None,
     ) -> list:
         # deferred: model/record import estimator, so top-level imports would cycle
         from ..frontend.lower import lower_gpu
@@ -560,11 +567,14 @@ class GPUAnalyticEstimator:
         with obs_trace.span(
             "estimate.batch", backend="gpu", machine=machine.name, size=len(irs)
         ) as sp:
-            ready = [lower_gpu(ir) for ir in irs]
+            ready = list(specs) if specs is not None else [None] * len(irs)
+            ready = [s if s is not None else lower_gpu(ir) for s, ir in zip(ready, irs)]
             ests = estimate_many(ready, machine, fits, method=self.method, cache=cache)
+            if configs is None:
+                configs = [{"name": ir.name, **ir.meta} for ir in irs]
             out = [
-                gpu_record({"name": ir.name, **ir.meta}, est, predict(spec, est, machine), machine)
-                for ir, spec, est in zip(irs, ready, ests)
+                gpu_record(cfg, est, predict(spec, est, machine), machine)
+                for cfg, spec, est in zip(configs, ready, ests)
             ]
             sp.set(cache_hits=cache.hits - h0, cache_misses=cache.misses - m0)
         obs_metrics.histogram("estimate.batch_size", backend="gpu").observe(len(irs))
@@ -576,3 +586,149 @@ class GPUAnalyticEstimator:
             cache.misses - m0
         )
         return out
+
+    def estimate_batch_machines(
+        self,
+        irs: Sequence,
+        machines: Sequence[GPUMachine],
+        *,
+        configs: Sequence[dict] | None = None,
+        cache: EstimateCache | None = None,
+        specs: Sequence[KernelSpec | None] | None = None,
+    ) -> dict[str, list]:
+        """Machine-batched :meth:`estimate_batch`: records for every machine in
+        one pass via :func:`estimate_many_machines` (per-config wave geometry
+        evaluated once for all machines).  Returns ``{machine.name: records}``,
+        each record bit-identical to a per-machine ``estimate_batch`` call."""
+        from ..frontend.lower import lower_gpu
+        from .model import predict
+        from .record import gpu_record
+
+        irs = list(irs)
+        if cache is None:
+            cache = EstimateCache()
+        h0, m0 = cache.hits, cache.misses
+        with obs_trace.span(
+            "estimate.batch_machines",
+            backend="gpu",
+            machines=[m.name for m in machines],
+            size=len(irs),
+        ) as sp:
+            ready = list(specs) if specs is not None else [None] * len(irs)
+            ready = [s if s is not None else lower_gpu(ir) for s, ir in zip(ready, irs)]
+            fits_map = {
+                m.name: (self.fits if self.fits is not None else m.fits)
+                for m in machines
+            }
+            ests = estimate_many_machines(
+                ready, machines, fits_map=fits_map, method=self.method, cache=cache
+            )
+            if configs is None:
+                configs = [{"name": ir.name, **ir.meta} for ir in irs]
+            out = {
+                m.name: [
+                    gpu_record(cfg, est, predict(spec, est, m), m)
+                    for cfg, spec, est in zip(configs, ready, ests[m.name])
+                ]
+                for m in machines
+            }
+            sp.set(cache_hits=cache.hits - h0, cache_misses=cache.misses - m0)
+        obs_metrics.histogram("estimate.batch_size", backend="gpu").observe(
+            len(irs) * len(machines)
+        )
+        obs_metrics.histogram("estimate.batch_seconds", backend="gpu").observe(
+            sp.duration_s
+        )
+        return out
+
+
+def _warm_wave_sets(spec: KernelSpec, machines: Sequence[GPUMachine], prims) -> None:
+    """Prefill the cache with every machine's wave footprints for one config,
+    evaluated in ONE multi-request symbolic pass.
+
+    The wave boxes are the only machine-*dependent* geometry in the pipeline
+    (SM count sets the wave size), so a multi-machine study re-derives raw
+    intervals per machine even though the access groups and row structure are
+    shared.  This gathers the base evaluations :func:`_estimate_one` will ask
+    for — ``(curr, sector, loads)``, ``(prev, sector, loads)``,
+    ``(curr, sector, stores)`` per representative wave pair; the line-
+    granularity and union sets derive from these arithmetically — dedups them
+    across machines, and evaluates the misses through
+    :func:`symset.field_interval_sets_grouped_multi`, writing cache entries
+    byte-identical in key and canonical in value to what the per-machine path
+    would create.  Replaying :func:`_estimate_one` afterwards is therefore
+    bit-for-bit the unbatched result.
+    """
+    cache = prims.cache
+    aid = cache.intern(spec.accesses)
+    pending: dict[tuple, tuple] = {}  # key -> (geom_key, boxes, gran, stores)
+    for machine in machines:
+        sector = machine.sector_bytes
+        for prev, curr in representative_waves(spec, machine):
+            curr_boxes = tuple(curr.merged_boxes(spec.launch))
+            want = [(curr_boxes, sector, False), (curr_boxes, sector, True)]
+            if prev.n:
+                want.append((tuple(prev.merged_boxes(spec.launch)), sector, False))
+            for boxes, gran, stores in want:
+                key = (prims.method, aid, boxes, gran, stores)
+                if key not in cache.sets:
+                    geom_key = (prims.method, aid, boxes, stores)
+                    pending.setdefault(key, (geom_key, boxes, gran, stores))
+    if not pending:
+        return
+    by_stores: dict[bool, list[tuple]] = {}
+    for key, (geom_key, boxes, gran, stores) in pending.items():
+        by_stores.setdefault(stores, []).append((key, geom_key, boxes, gran))
+    for stores, reqs in by_stores.items():
+        groups = prims._groups(aid, spec.accesses, stores)
+        sets_list = fp_sym.field_interval_sets_grouped_multi(
+            groups, [(boxes, gran) for _, _, boxes, gran in reqs]
+        )
+        for (key, geom_key, boxes, gran), sets in zip(reqs, sets_list):
+            nbytes = _set_bytes(sets, gran, prims.m)
+            cache.trim()
+            cache.sets[key] = (key, sets, nbytes)
+            cache.geom.setdefault(geom_key, {})[gran] = sets
+            cache.misses += 1
+
+
+def estimate_many_machines(
+    specs_or_configs: Iterable[KernelSpec | dict],
+    machines: Sequence[GPUMachine],
+    fits_map: dict[str, CapacityFits] | None = None,
+    method: str = "sym",
+    build: Callable[..., KernelSpec] | None = None,
+    cache: EstimateCache | None = None,
+) -> dict[str, list[VolumeEstimate]]:
+    """Machine-batched :func:`estimate_many`: every machine's estimates for a
+    batch of configs, interleaving machines *inside* the per-config loop so
+    each config's wave geometry evaluates for all machines in one vectorized
+    pass (:func:`_warm_wave_sets`) while the entries are certainly still
+    cached (the cache trims wave sets between configs on long sweeps).
+
+    ``fits_map`` overrides capacity fits per machine name (default:
+    ``machine.fits``).  Returns ``{machine.name: [VolumeEstimate, ...]}`` with
+    each list in input order, bit-for-bit equal to running
+    :func:`estimate_many` once per machine over a shared cache.
+    """
+    if cache is None:
+        cache = EstimateCache()
+    prims = _BatchPrims(cache, method)
+    fits = {
+        m.name: (fits_map or {}).get(m.name) or m.fits for m in machines
+    }
+    out: dict[str, list[VolumeEstimate]] = {m.name: [] for m in machines}
+    for item in specs_or_configs:
+        if isinstance(item, KernelSpec):
+            spec = item
+        else:
+            if build is None:
+                raise TypeError(
+                    "estimate_many_machines received a config dict but no build= callable"
+                )
+            spec = build(**item)
+        if method == "sym" and len(machines) > 1:
+            _warm_wave_sets(spec, machines, prims)
+        for m in machines:
+            out[m.name].append(_estimate_one(spec, m, fits[m.name], method, prims))
+    return out

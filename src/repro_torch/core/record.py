@@ -8,7 +8,7 @@ Copy of the GPU half of ``repro.core.record``:
   :class:`~repro_torch.core.ranking.RankedConfig`;
 * :class:`Estimator` — the protocol (``estimate_batch(irs, machine) ->
   list[EstimateRecord]``) that :class:`repro_torch.core.estimator.GPUAnalyticEstimator`
-  implements and the whole-model estimator calls;
+  implements and the exploration and the whole-model estimator call;
 * :func:`record_payload` / :func:`record_from_payload` — the store schema
   (v4), exact float round-trip via ``repr``.
 
@@ -60,16 +60,17 @@ class Estimator(Protocol):
     """A backend's batched estimation entry point.
 
     ``irs`` are canonical :class:`~repro_torch.frontend.ir.AccessIR` objects
-    (element granularity for the GPU §III pipeline), each record stamped
-    with ``{"name": ir.name, **ir.meta}``.  ``cache`` is an optional
-    :class:`~repro_torch.core.estimator.EstimateCache` shared across
+    (element granularity for the GPU §III pipeline); ``configs``, when
+    given, is the aligned list of config-identity dicts to stamp on the
+    records (defaults to ``{"name": ir.name, **ir.meta}``).  ``cache`` is an
+    optional :class:`~repro_torch.core.estimator.EstimateCache` shared across
     calls/machines for the machine-independent invariants.
     """
 
     backend: str
 
     def estimate_batch(
-        self, irs: Sequence, machine, *, cache=None
+        self, irs: Sequence, machine, *, configs=None, cache=None
     ) -> list[EstimateRecord]: ...
 
 

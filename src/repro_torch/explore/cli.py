@@ -1,36 +1,111 @@
-"""Command line of the port's whole-model estimator:
-``python -m repro_torch.explore graph --model rwkv6-1.6b --smoke --machine a100``.
+"""Command-line sweep driver: ``python -m repro_torch.explore --kernel stencil25 --top 5``.
 
-The ``graph`` subcommand of ``repro.explore.cli``, with the same flags and
-the same report: it traces one model step into a kernel DAG, estimates every
-unique kernel, and replays the DAG (``repro_torch.graph.step_time``).  The
-JAX CLI's other subcommands wait for their modules: the kernel sweep,
-``search``, ``store`` and ``serve`` for ``explore`` (ROADMAP Queue 1 item
-8), ``lint`` for ``analysis`` (item 9).  Any of them, or any other first
-argument, exits with code 2 and names its item.
+A thin shell over :class:`repro_torch.explore.Study`: every invocation declares one
+study (kernel x space x machines x backend x store), runs it, and prints the
+best-first ranking plus, on request, the Pareto frontier.  Estimates persist
+to a resumable JSONL store, so re-invocations are incremental and report the
+cache-hit count.
+
+``--machine`` picks an architecture from the registry (case-insensitive:
+``a100``, ``A100`` and ``A100-SXM4-40GB`` all work); ``--machines v100,a100``
+sweeps the same space over several architectures in one batched run and
+reports how the predicted ranking shifts between them (Kendall tau + where
+each machine's winner places elsewhere).
+
+Copy of ``repro.explore.cli``: the kernel sweep and the ``graph``,
+``search``, ``store`` and ``serve`` subcommands print what the JAX CLI
+prints (``tests/test_torch_explore.py`` holds the sweep to
+``tests/golden/explore_stencil25_{a100,v100}.json``).  The port has no TPU
+backend, so ``--backend tpu``, a ``*_tpu`` kernel and a TPU machine exit 2
+naming ROADMAP Queue 1 item 10; ``lint`` and ``--explain`` exit 2 naming
+item 9 (``repro.analysis`` and ``repro.obs.explain``).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 from ..obs import trace as obs_trace
-from .registry import MACHINES
+from ..store import ResultStore, open_store
+from .registry import (
+    KERNELS,
+    MACHINES,
+    NO_TPU,
+    canonical_machine_name,
+    get_kernel,
+    get_machine,
+)
+from .study import CrossMachineResult, Study, SweepResult, default_stores
 
-# first argument -> the ROADMAP item that ports it
-NOT_PORTED = {
-    "lint": "the static analysis (repro.analysis; ROADMAP Queue 1 item 9)",
-    "search": "explore's search (ROADMAP Queue 1 item 8)",
-    "store": "explore's result stores (ROADMAP Queue 1 item 8)",
-    "serve": "explore's estimation service (ROADMAP Queue 1 item 8)",
-}
-SWEEP = "explore's kernel sweep, Study (ROADMAP Queue 1 item 8)"
+NO_LINT = (
+    "the static analysis (repro.analysis) is not ported: it waits for "
+    "ROADMAP Queue 1 item 9"
+)
+NO_EXPLAIN = (
+    "--explain needs repro.obs.explain, which is not ported: it waits for "
+    "ROADMAP Queue 1 item 9"
+)
+
+
+def _build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m repro_torch.explore",
+        description="Estimator-driven configuration-space exploration (no benchmarking).",
+    )
+    p.add_argument("--kernel", help="kernel to explore (see --list)")
+    p.add_argument("--backend", default=None, choices=("gpu", "tpu"),
+                   help="estimation backend: resolves a kernel family to its gpu "
+                        "(paper §III) or tpu (Pallas) entry, e.g. "
+                        "--kernel attention --backend tpu")
+    p.add_argument("--list", action="store_true", help="list explorable kernels and exit")
+    p.add_argument("--machine", default=None,
+                   help=f"machine model, case-insensitive (registry: {', '.join(sorted(MACHINES))})")
+    p.add_argument("--machines", default=None, metavar="M1,M2,...",
+                   help="comma-separated machines for a cross-machine comparison sweep")
+    p.add_argument("--method", default="sym", choices=("sym", "enum"),
+                   help="footprint method (paper §III.D.2 symbolic vs §III.D.1 enumeration)")
+    p.add_argument("--top", type=int, default=5, help="print the best K configs")
+    p.add_argument("--store", default=None,
+                   help="result store path (default results/explore/<kernel>__<machine>__<method>.jsonl;"
+                        " per-machine defaults with --machines)")
+    p.add_argument("--no-store", action="store_true", help="disable the persistent cache")
+    p.add_argument("--store-backend", default=None, choices=("jsonl", "sharded"),
+                   help="force a store backend (default: resolve from what's on "
+                        "disk — a directory opens the sharded multi-writer store, "
+                        "a .jsonl path the single-file one)")
+    p.add_argument("--alias", nargs="?", const=True, default=None, metavar="PATH",
+                   help="config->fingerprint alias store so warm re-runs skip IR "
+                        "tracing (bare --alias uses the default path next to the "
+                        "result store; invalidated wholesale on a builder bump)")
+    p.add_argument("--workers", type=int, default=0,
+                   help="process-pool workers for cache misses (0 = serial)")
+    p.add_argument("--prune", action="store_true",
+                   help="analytic pre-pruning (roofline bound + launch sanity)")
+    p.add_argument("--keep-fraction", type=float, default=0.5,
+                   help="fraction of candidates surviving --prune")
+    p.add_argument("--sample", type=int, default=None,
+                   help="deterministic subsample of the space to N configs")
+    p.add_argument("--seed", type=int, default=0, help="sampling seed")
+    p.add_argument("--pareto", action="store_true", help="also print the Pareto frontier")
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="machine-readable JSON summary instead of tables")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="export a Chrome-trace/Perfetto JSON of the sweep's phase "
+                        "structure to PATH (load in ui.perfetto.dev or chrome://tracing)")
+    p.add_argument("--explain", default=None, metavar="CFG",
+                   help="provenance report for one config: 'best', a rank index into "
+                        "the sorted records, or a config JSON dict, e.g. "
+                        "'{\"block\": [32, 2, 8], \"fold\": [1, 1, 1]}' (pruned "
+                        "configs are estimated on demand)")
+    return p
 
 
 def _errmsg(e: BaseException) -> str:
     """One exception-formatting path for the whole CLI: the first exception
     argument when there is one (KeyError keeps its message there, and str()
-    would re-quote it), repr() otherwise."""
+    would re-quote it), repr() otherwise — an arg-less exception's str() is
+    the empty string, and the old bare ``e.args[0]`` raised IndexError."""
     return str(e.args[0]) if e.args else repr(e)
 
 
@@ -52,6 +127,85 @@ def _export_trace(path: str) -> None:
         "(load in ui.perfetto.dev or chrome://tracing)",
         file=sys.stderr,
     )
+
+
+def _fmt_cfg(cfg: dict) -> str:
+    if "block" in cfg:
+        s = f"block={tuple(cfg['block'])}"
+        if tuple(cfg.get("fold", (1, 1, 1))) != (1, 1, 1):
+            s += f" fold={tuple(cfg['fold'])}"
+        if "chunk" in cfg:
+            s += f" chunk={cfg['chunk']}"
+        return s
+    return cfg.get("name", str(cfg))
+
+
+def _print_gpu_rows(records) -> None:
+    print("rank | config                        | GLup/s | limiter | DRAM B/LUP | occ")
+    for i, r in enumerate(records):
+        m = r.metrics
+        star = "*" if r.from_cache else " "
+        print(
+            f"{i:4d}{star}| {_fmt_cfg(r.config):29s} | {m['glups']:6.1f} "
+            f"| {m['limiter']:7s} | {m['v_dram']:10.1f} | {m['occupancy']:.2f}"
+        )
+
+
+def _summary(res: SweepResult, top: int) -> dict:
+    return {
+        "kernel": res.kernel,
+        "backend": res.backend,
+        "machine": res.machine,
+        "method": res.method,
+        "candidates": res.stats.candidates,
+        "evaluated": res.stats.evaluated,
+        "cache_hits": res.stats.cache_hits,
+        "pruned": res.stats.pruned,
+        "wall_s": res.stats.wall_s,
+        "store": res.store_path,
+        "top": [
+            {"config": r.config, "metrics": r.metrics} for r in res.top(top)
+        ],
+        "pareto": [
+            {"config": r.config, "metrics": r.metrics} for r in res.pareto()
+        ],
+    }
+
+
+def _fmt_score(score, metric: str) -> str:
+    if score is None:
+        return "pruned"
+    if metric == "glups":
+        return f"{score:6.1f} GLup/s"
+    return f"{score * 1e6:7.1f} us"
+
+
+def _print_cross(cm: CrossMachineResult, top: int, args_pareto: bool = False) -> None:
+    printer = _print_gpu_rows
+    for name in cm.machines:
+        res = cm.results[name]
+        s = res.stats
+        print(f"\n== {name} ({res.machine}): {s.candidates} candidates, "
+              f"{s.cache_hits} cache hits, {s.evaluated} estimated ==")
+        printer(res.top(top))
+    if args_pareto:
+        for name in cm.machines:
+            front = cm.results[name].pareto()
+            print(f"\npareto front on {name} ({len(front)} non-dominated configs):")
+            printer(front)
+    print("\nranking shift across machines:")
+    print("  kendall tau over common configs: "
+          + "  ".join(
+              f"{a}/{b}=" + (f"{t:+.3f}" if t is not None else "n/a (<2 common)")
+              for (a, b), t in cm.tau.items()
+          ))
+    for w in cm.winners:
+        placements = "  ".join(
+            f"{m}: rank {('%d' % r) if r is not None else '-'} "
+            f"({_fmt_score(s, cm.score_metric).strip()})"
+            for m, (r, s) in w.placements.items()
+        )
+        print(f"  best on {w.machine}: {_fmt_cfg(w.config):29s} -> {placements}")
 
 
 def _graph_parser() -> argparse.ArgumentParser:
@@ -132,8 +286,345 @@ def main(argv: list[str] | None = None) -> int:
         argv = sys.argv[1:]
     if argv and argv[0] == "graph":
         return _graph_main(argv[1:])
-    what = NOT_PORTED.get(argv[0]) if argv else None
-    return _fail(
-        f"{argv[0] if argv else 'a kernel sweep'!r} is not ported: it waits for "
-        f"{what or SWEEP}; the port's CLI has the 'graph' subcommand only"
+    if argv and argv[0] == "serve":
+        from .serve import serve_main
+
+        return serve_main(argv[1:])
+    if argv and argv[0] == "search":
+        return _search_main(argv[1:])
+    if argv and argv[0] == "store":
+        return _store_main(argv[1:])
+    if argv and argv[0] == "lint":
+        return _fail(NO_LINT)
+    args = _build_parser().parse_args(argv)
+    if args.list:
+        for name, e in sorted(KERNELS.items()):
+            print(f"{name:16s} [{e.family}/{e.backend}] {e.describe}")
+        return 0
+    if not args.kernel:
+        return _fail("--kernel is required (see --list)")
+    if args.machine and args.machines:
+        return _fail("--machine and --machines are mutually exclusive")
+    if args.store and args.machines:
+        return _fail(
+            "--store names ONE file; --machines keeps one store per "
+            "machine at results/explore/<kernel>__<machine>__<method>.jsonl "
+            "(use --no-store to disable caching)"
+        )
+    try:
+        entry = get_kernel(args.kernel, backend=args.backend)
+    except KeyError as e:
+        return _fail(e)
+    if entry.backend == "tpu":
+        return _fail(f"kernel {entry.name!r}: {NO_TPU}")
+    if args.explain is not None:
+        return _fail(NO_EXPLAIN)
+    method = args.method
+    if args.trace:
+        obs_trace.enable()
+    try:
+        return _run(args, entry, method)
+    finally:
+        # export whatever was traced, even when the run errored partway —
+        # a partial trace of a failed sweep is exactly when one wants it
+        if args.trace:
+            _export_trace(args.trace)
+
+
+def _run(args, entry, method: str) -> int:
+    if args.machines:
+        try:
+            names = [canonical_machine_name(m) for m in args.machines.split(",") if m]
+            stores = None
+            if not args.no_store:
+                stores = default_stores(entry.name, names, method)
+            study = Study(
+                entry.name,
+                machines=names,
+                method=args.method,
+                stores=stores,
+                workers=args.workers,
+                prune=args.prune,
+                keep_fraction=args.keep_fraction,
+                sample=args.sample,
+                seed=args.seed,
+                alias=args.alias,
+            )
+            cm = study.compare()
+        except (ValueError, KeyError, NotImplementedError) as e:
+            return _fail(e)
+        if args.as_json:
+            print(json.dumps(cm.summary(args.top), indent=2, default=list))
+            return 0
+        print(f"cross-machine exploration of {cm.kernel} over {', '.join(cm.machines)} "
+              f"({len(next(iter(cm.results.values())).records)} common-space configs per machine)")
+        _print_cross(cm, args.top, args.pareto)
+        return 0
+
+    try:
+        machine_key = canonical_machine_name(args.machine or entry.default_machine)
+        get_machine(machine_key)
+    except (KeyError, NotImplementedError) as e:
+        return _fail(e)
+    store = None
+    if not args.no_store:
+        store = open_store(
+            args.store or ResultStore.default_path(entry.name, machine_key, method),
+            backend=args.store_backend,
+        )
+    try:
+        study = Study(
+            entry.name,
+            machine=machine_key,
+            method=args.method,
+            store=store,
+            workers=args.workers,
+            prune=args.prune,
+            keep_fraction=args.keep_fraction,
+            sample=args.sample,
+            seed=args.seed,
+            alias=args.alias,
+        )
+        res = study.result()
+    except (ValueError, KeyError, NotImplementedError) as e:
+        return _fail(e)
+    if args.as_json:
+        print(json.dumps(_summary(res, args.top), indent=2, default=list))
+        return 0
+    s = res.stats
+    print(f"exploring {res.kernel} on {res.machine} (method={res.method}): "
+          f"{s.candidates} candidates")
+    if res.space_report is not None:
+        print(f"space: {res.space_report}")
+    if res.prune_report is not None:
+        print(f"prune: {res.prune_report}")
+    print(f"cache: {s.cache_hits} hits, {s.evaluated} misses"
+          + (f" (store {res.store_path}, {len(store)} entries)" if store else ""))
+    print(f"swept {len(res.records)} configs in {s.wall_s:.1f}s "
+          f"({len(res.records) / max(s.wall_s, 1e-9):.0f} cfg/s)\n")
+    _print_gpu_rows(res.top(args.top))
+    if args.pareto:
+        front = res.pareto()
+        print(f"\npareto front ({len(front)} non-dominated configs):")
+        _print_gpu_rows(front)
+    return 0
+
+
+def _search_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m repro_torch.explore search",
+        description="Budget-aware search: successive halving with the analytic "
+                    "estimator as inner oracle (free screen scores -> memory-only "
+                    "proxy rung -> full estimates -> multi-machine finalists). "
+                    "Records land in the same stores as exhaustive sweeps, so "
+                    "search and sweep resume each other.",
     )
+    p.add_argument("--kernel", required=True,
+                   help="kernel to search (GPU backend; see `python -m repro_torch.explore --list`)")
+    p.add_argument("--budget", type=int, required=True,
+                   help="max configs fully estimated on the primary machine")
+    p.add_argument("--eta", type=int, default=3,
+                   help="halving factor: the proxy rung sees at most budget*eta^3 "
+                        "configs, the multi-machine rung ceil(budget/eta) finalists")
+    p.add_argument("--wide", action="store_true",
+                   help="search the kernel's wide space (stencil25: 2160 configs) "
+                        "instead of the paper space")
+    p.add_argument("--machine", default=None,
+                   help=f"machine model, case-insensitive (registry: {', '.join(sorted(MACHINES))})")
+    p.add_argument("--machines", default=None, metavar="M1,M2,...",
+                   help="comma-separated machines; the first is the primary "
+                        "(full-estimate) machine, the rest get the finalist rung")
+    p.add_argument("--method", default="sym", choices=("sym", "enum"),
+                   help="footprint method for the full rung")
+    p.add_argument("--proxy-method", default="sym", choices=("sym", "enum"),
+                   help="footprint backend for the proxy rung (sym shares cached "
+                        "sets with the full rung)")
+    p.add_argument("--no-screen", action="store_true",
+                   help="skip the free screen rung (classic halving)")
+    p.add_argument("--no-proxy", action="store_true",
+                   help="skip the memory-only proxy rung")
+    p.add_argument("--sample", type=int, default=None, metavar="N",
+                   help="lazily sample N candidates from the space instead of "
+                        "enumerating it (the entry point for huge spaces)")
+    p.add_argument("--seed", type=int, default=0, help="sampling seed")
+    p.add_argument("--propose", type=int, default=0, metavar="ROUNDS",
+                   help="model-guided local-search rounds perturbing the current "
+                        "best configs (spends part of the budget)")
+    p.add_argument("--top", type=int, default=5, help="print the best K configs")
+    p.add_argument("--store", default=None,
+                   help="result store path (default: the kernel's exhaustive-sweep "
+                        "store, so search and sweep share estimates)")
+    p.add_argument("--no-store", action="store_true", help="disable the persistent cache")
+    p.add_argument("--recall", action="store_true",
+                   help="also sweep the space exhaustively (through the same "
+                        "store) and report the fraction of the true Pareto "
+                        "front the search recovered")
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="machine-readable JSON summary instead of tables")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="export a Chrome-trace JSON of the search's rung "
+                        "structure (search.rung spans) to PATH")
+    return p
+
+
+def _search_main(argv: list[str]) -> int:
+    args = _search_parser().parse_args(argv)
+    from .search import LocalSearch, SuccessiveHalving, pareto_recall
+
+    try:
+        entry = get_kernel(args.kernel, backend="gpu")
+    except KeyError as e:
+        return _fail(e)
+    if args.machine and args.machines:
+        return _fail("--machine and --machines are mutually exclusive")
+    space = None
+    if args.wide:
+        if entry.wide_space is None:
+            return _fail(f"kernel {entry.name!r} has no wide search space")
+        space = entry.wide_space()
+
+    try:
+        names = (
+            [canonical_machine_name(m) for m in args.machines.split(",") if m]
+            if args.machines
+            else [canonical_machine_name(args.machine or entry.default_machine)]
+        )
+    except (KeyError, NotImplementedError) as e:
+        return _fail(e)
+    method = args.method
+    stores = None
+    if not args.no_store:
+        if args.store:
+            if len(names) > 1:
+                return _fail(
+                    "--store names ONE store; --machines keeps one per machine "
+                    "(use --no-store to disable caching)"
+                )
+            stores = {names[0]: open_store(args.store)}
+        else:
+            stores = default_stores(entry.name, names, method)
+    if args.trace:
+        obs_trace.enable()
+    try:
+        study = Study(
+            entry.name, space, machines=names, method=method, stores=stores
+        )
+        search = SuccessiveHalving(
+            budget=args.budget,
+            eta=args.eta,
+            screen=not args.no_screen,
+            proxy=not args.no_proxy,
+            proxy_method=args.proxy_method,
+            sample=args.sample,
+            seed=args.seed,
+            proposer=LocalSearch(rounds=args.propose) if args.propose else None,
+            multi_machine=len(names) > 1,
+        )
+        try:
+            result = study.run(search=search)
+            recall = None
+            if args.recall:
+                truth = Study(
+                    entry.name, space, machines=names, method=method, stores=stores
+                ).run()
+                recall = pareto_recall(
+                    result.result(names[0]).records,
+                    truth.result(names[0]).pareto(),
+                )
+        except (ValueError, KeyError) as e:
+            return _fail(e)
+    finally:
+        if args.trace:
+            _export_trace(args.trace)
+
+    res = result.result(names[0])
+    stats = result.search_stats
+    if args.as_json:
+        out = _summary(res, args.top)
+        out["search"] = stats.summary()
+        if recall is not None:
+            out["pareto_recall"] = recall
+        if len(names) > 1:
+            out["finalists"] = {
+                label: [
+                    {"config": r.config, "metrics": r.metrics}
+                    for r in result.result(label).records
+                ]
+                for label in names[1:]
+            }
+        print(json.dumps(out, indent=2, default=list))
+        return 0
+    print(f"searching {res.kernel} on {res.machine} (method={res.method}): "
+          f"budget {stats.budget}, eta {stats.eta}")
+    print(f"pool {stats.pool} -> screen kept {stats.pool - stats.screened_out} "
+          f"-> proxy ranked {stats.proxy_evaluated} -> full estimated "
+          f"{stats.full_selected} ({stats.full_cache_hits} store hits)")
+    if stats.proposed:
+        print(f"proposer: {stats.proposed} proposed, {stats.promoted} promoted")
+    print("rungs: " + ", ".join(
+        f"{r['rung']}({r.get('evaluated', r.get('proposed', '?'))})"
+        for r in stats.rungs
+    ))
+    if recall is not None:
+        frac = stats.full_selected / max(stats.pool, 1)
+        print(f"pareto recall vs exhaustive truth: {recall:.3f} "
+              f"(fully estimated {stats.full_selected}/{stats.pool} configs "
+              f"= {100 * frac:.1f}%)")
+    print()
+    _print_gpu_rows(res.top(args.top))
+    for label in names[1:]:
+        other = result.result(label)
+        print(f"\nfinalists on {label} ({len(other.records)} configs):")
+        _print_gpu_rows(other.records[: args.top])
+    return 0
+
+
+def _store_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m repro_torch.explore store",
+        description="Result-store maintenance: inspect and compact stores "
+                    "(single-file .jsonl or sharded directories).",
+    )
+    sub = p.add_subparsers(dest="cmd", required=True)
+    info = sub.add_parser("info", help="entry counts, machines, builder versions, segments")
+    info.add_argument("path", help="store path (.jsonl file or sharded directory)")
+    comp = sub.add_parser(
+        "compact",
+        help="fold the log to one line per live key (sharded: folds every "
+             "writer segment into compacted.jsonl under the directory lock)",
+    )
+    comp.add_argument("path", help="store path (.jsonl file or sharded directory)")
+    comp.add_argument("--ttl", type=float, default=None, metavar="SECONDS",
+                      help="expire records older than SECONDS while folding "
+                           "(records without a timestamp count as infinitely old)")
+    return p
+
+
+def _store_main(argv: list[str]) -> int:
+    args = _store_parser().parse_args(argv)
+    try:
+        store = open_store(args.path)
+    except (OSError, ValueError) as e:
+        return _fail(e)
+    kind = type(store).__name__
+    if args.cmd == "compact":
+        before = len(store)
+        segs = store.segments() if hasattr(store, "segments") else None
+        store.compact(ttl_s=args.ttl)
+        line = f"compacted {args.path} [{kind}]: {before} live entries"
+        if args.ttl is not None:
+            line += f" -> {len(store)} after --ttl {args.ttl:g}"
+        if segs is not None:
+            line += f" (folded {len(segs)} layer(s) into compacted.jsonl)"
+        print(line)
+        return 0
+    print(f"store:    {args.path} [{kind}]")
+    print(f"entries:  {len(store)}")
+    machines = {str(k): v for k, v in store.machines().items()}
+    print(f"machines: {json.dumps(machines, sort_keys=True)}")
+    bvs = {str(k): v for k, v in store.builder_versions().items()}
+    print(f"builder_versions: {json.dumps(bvs, sort_keys=True)}")
+    if hasattr(store, "segments"):
+        for name, n in store.segments().items():
+            print(f"segment:  {name} ({n} lines)")
+    return 0

@@ -14,9 +14,8 @@ discrete-event :class:`~repro_torch.graph.replay.Replayer`.
 ``step_time`` is the one-call entry point: model x machine x mesh ->
 :class:`StepTimeReport` with the predicted step time, critical path,
 per-device utilization, overlap fraction, slack table and limiter
-attribution.  The JAX package also exposes it as ``Study.step_time``, which
-waits for the port of ``Study`` (ROADMAP Queue 1 item 8); its ``lint=``
-audit waits for ``analysis`` (item 9).
+attribution.  ``repro_torch.explore.Study.step_time`` is the same call; its
+``lint=`` audit waits for ``analysis`` (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 

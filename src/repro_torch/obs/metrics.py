@@ -1,5 +1,5 @@
-"""Process-global metrics registry: the counters and histograms of
-``repro.obs.metrics`` (its gauges and cross-process merge have no caller in
+"""Process-global metrics registry: the counters, histograms and
+cross-process merge of ``repro.obs.metrics`` (its gauges have no caller in
 the port).
 
 Counters and histograms for the estimation stack: the batched
@@ -36,6 +36,7 @@ __all__ = [
     "counter",
     "diff",
     "histogram",
+    "merge",
     "snapshot",
 ]
 
@@ -132,6 +133,21 @@ class MetricsRegistry:
                 },
             }
 
+    def merge(self, snap: dict) -> None:
+        """Fold another process's snapshot into this registry (counters add,
+        histograms combine): the exploration's pool workers ship theirs back."""
+        for k, v in snap.get("counters", {}).items():
+            self._get(self._counters, Counter, k, {}).inc(v)
+        for k, d in snap.get("histograms", {}).items():
+            h = self._get(self._histograms, Histogram, k, {})
+            if d.get("count"):
+                h.count += d["count"]
+                h.total += d["sum"]
+                if d["min"] is not None and d["min"] < h.min:
+                    h.min = d["min"]
+                if d["max"] is not None and d["max"] > h.max:
+                    h.max = d["max"]
+
 
 def diff(before: dict, after: dict) -> dict:
     """What happened *between* two snapshots: counter deltas (zero-delta series
@@ -173,3 +189,7 @@ def histogram(name: str, **labels) -> Histogram:
 
 def snapshot() -> dict:
     return _REGISTRY.snapshot()
+
+
+def merge(snap: dict) -> None:
+    _REGISTRY.merge(snap)

@@ -1,6 +1,6 @@
 """Structured tracing for the estimation pipeline: ``repro.obs.trace``'s
-spans, tracer and Chrome-trace export (its counter events and worker-event
-export have no caller in the port).
+spans, tracer, Chrome-trace export and worker-event export (its counter
+events have no caller in the port).
 
 Every phase of an estimation runs inside a nestable :func:`span`, and an
 enabled :class:`Tracer` exports the result as Chrome-trace/Perfetto JSON
@@ -15,7 +15,8 @@ step it predicts (``python -m repro_torch.explore graph --trace PATH``).
   estimator's ``estimate.batch_seconds`` histogram reads it).
 * **Merging timelines.**  :meth:`Tracer.absorb` re-bases another event
   payload's timestamps onto this timeline via the wall-clock epochs both
-  sides record (the replay's predicted timeline comes in this way).
+  sides record (the replay's predicted timeline comes in this way, and so
+  do a ``Study``'s pool workers' spans, from :func:`export_events`).
 * **Zero dependencies.**  Stdlib only.
 
 Usage::
@@ -43,6 +44,7 @@ __all__ = [
     "active",
     "disable",
     "enable",
+    "export_events",
     "span",
     "validate_chrome_trace",
 ]
@@ -147,6 +149,10 @@ class Tracer:
             f.write("\n")
         return len(doc["traceEvents"])
 
+    def span_names(self) -> set[str]:
+        return {ev["name"] for ev in self.events if ev.get("ph") == "X"}
+
+
 def enable() -> Tracer:
     """Turn tracing on (idempotent: an already-enabled tracer is returned)."""
     global _tracer
@@ -166,6 +172,16 @@ def disable() -> None:
 def active() -> Tracer | None:
     """The enabled tracer, or None when tracing is off."""
     return _tracer
+
+
+def export_events() -> dict:
+    """Picklable event payload for cross-process aggregation (pool workers ship
+    this back with their results; the parent calls :meth:`Tracer.absorb`)."""
+    t = _tracer
+    if t is None:
+        return {"epoch_wall": time.time(), "events": []}
+    with t._elock:
+        return {"epoch_wall": t.epoch_wall, "events": [dict(e) for e in t.events]}
 
 
 def span(name: str, **args: Any) -> Span:

@@ -175,6 +175,20 @@ def test_cuda_tensors_always_launch(cuda):
     assert wkv_cuda.launches == n + 1
 
 
+def test_study_h100_stencil_pick_runs_and_matches_plain(cuda):
+    """The exploration's pick on the H100 model (``Study``, the paper's 162
+    configurations at the paper grid), launched at a small grid."""
+    from repro_torch.explore import Study
+
+    cfg = Study("stencil25", machine="h100").top(1)[0].config
+    src = torch.randn((16, 32, 64), generator=torch.Generator(device=cuda).manual_seed(2),
+                      device=cuda, dtype=torch.float64)
+    n = stencil25_cuda.launches
+    out = stencil25(src, block=tuple(cfg["block"]), fold=tuple(cfg["fold"]))
+    assert stencil25_cuda.launches == n + 1
+    assert _err(out, stencil25_plain(src, 4)) <= TOL[torch.float64]
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     src = torch.randn((16, 16, 32), device=cuda)
     with pytest.raises(ValueError):

@@ -79,7 +79,12 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "repro_torch.explore.cli", "repro_torch.graph.dag",
                  "repro_torch.graph.kernels", "repro_torch.graph.frontend",
                  "repro_torch.graph.replay", "repro_torch.graph.study",
-                 "repro_torch.graph.classes"):
+                 "repro_torch.graph.classes", "repro_torch.store", "repro_torch.store.jsonl",
+                 "repro_torch.store.sharded", "repro_torch.store.alias", "repro_torch.explore.store",
+                 "repro_torch.explore.space", "repro_torch.explore.prune", "repro_torch.explore.pareto",
+                 "repro_torch.explore.serve", "repro_torch.explore.search",
+                 "repro_torch.explore.search.driver", "repro_torch.explore.search.halving",
+                 "repro_torch.explore.search.propose", "repro_torch.explore.search.convergence"):
         assert name in res["modules"]
 
 

@@ -9,8 +9,8 @@ out, and the kernel classes that set its predictions beside the card.
 * **the CLI:** ``python -m repro_torch.explore graph`` prints the JAX
   package's golden report (``tests/golden/graph_rwkv6_a100.txt``, read,
   never written) byte for byte; ``--json`` and ``--trace`` too;
-* **left out:** a TPU machine, ``lint`` and the CLI's other subcommands
-  raise or exit 2, each naming its ROADMAP item;
+* **left out:** a TPU machine and ``lint`` raise or exit 2, each naming its
+  ROADMAP item; the CLI's other subcommands run as the JAX CLI's do;
 * **kernel classes:** ``graph.classes`` sorts kernel names the profiler
   reported on an H100 (``benchmarks/torch_train_profile.py`` and
   ``torch_serve_profile.py``) into the DAG's node classes, and sums a
@@ -24,6 +24,8 @@ import json
 import os
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
 
 import pytest
@@ -34,6 +36,7 @@ from repro.graph import step_time as jax_step_time
 from repro_torch.configs import get_arch
 from repro_torch.explore import cli
 from repro_torch.explore.registry import get_estimator
+from repro_torch.explore.serve import ServeClient
 from repro_torch.graph import KernelDAG, step_time, trace_step
 from repro_torch.graph.classes import (
     kernel_class,
@@ -202,19 +205,80 @@ def test_lint_raises():
     assert isinstance(trace_step(cfg, batch=8, seq=128), KernelDAG)
 
 
+def _serve_cli(main, root: Path, capsys) -> tuple[int, str, str]:
+    """``serve --port 0`` in a thread: wait for its address line, ask
+    ``/health``, then ``/shutdown``, and return what the CLI returned."""
+    rcs = []
+    t = threading.Thread(target=lambda: rcs.append(main(["serve", "--port", "0", "--root", str(root)])))
+    t.start()
+    out = ""
+    for _ in range(500):
+        out += capsys.readouterr().out
+        if "serving on http://" in out:
+            break
+        time.sleep(0.01)
+    host, port = out.split("serving on http://")[1].split()[0].rsplit(":", 1)
+    client = ServeClient(host, int(port))
+    assert client.health()["ok"] is True
+    client.shutdown()
+    client.close()
+    t.join(timeout=30)
+    rest = capsys.readouterr()
+    return rcs[0], out + rest.out, rest.err
+
+
+def _volatile_dropped(out: str) -> str:
+    """The sweep's stdout without its wall-clock figures: the text table's
+    ``swept ... in Xs`` line, the JSON summary's ``wall_s``."""
+    if out.startswith("{"):
+        doc = json.loads(out)
+        doc.pop("wall_s", None)
+        return json.dumps(doc, sort_keys=True)
+    return "\n".join(ln for ln in out.splitlines() if not ln.startswith("swept "))
+
+
 @pytest.mark.parametrize("argv, item", [
     (["lint", "--kernel", "stencil25"], "item 9"),
-    (["search", "--kernel", "stencil25"], "item 8"),
-    (["store", "stats"], "item 8"),
+    (["search", "--kernel", "stencil25", "--budget", "8", "--json"], "item 8"),
+    (["store", "info", "sweep.jsonl"], "item 8"),
     (["serve"], "item 8"),
     (["--kernel", "stencil25", "--top", "5"], "item 8"),
     (["--list"], "item 8"),
     ([], "item 8"),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else v)
-def test_other_subcommands_exit_2(argv, item, capsys):
-    rc, out, err = _run(cli.main, argv, capsys)
-    assert rc == 2 and out == ""
-    assert f"ROADMAP Queue 1 {item}" in err
+def test_other_subcommands_exit_2(argv, item, tmp_path, monkeypatch, capsys):
+    """``lint`` (ROADMAP Queue 1 item 9) exits 2 naming its item.  The
+    subcommands that item 8 ported run as the JAX CLI runs them, each
+    package in a directory of its own (the default stores land there): the
+    same exit code and the same output, less wall-clock figures.  ``search``
+    takes the budget it requires and ``store info`` a store that a small
+    sweep wrote; ``serve`` answers ``/health`` and stops on ``/shutdown``;
+    with no arguments both CLIs exit 2 asking for ``--kernel``."""
+    if item == "item 9":
+        rc, out, err = _run(cli.main, argv, capsys)
+        assert rc == 2 and out == ""
+        assert f"ROADMAP Queue 1 {item}" in err
+        return
+    runs = {}
+    for name, main in (("jax", jax_cli.main), ("port", cli.main)):
+        cwd = tmp_path / name
+        cwd.mkdir()
+        monkeypatch.chdir(cwd)
+        if argv[:1] == ["store"]:
+            assert main(["--kernel", "stencil25", "--sample", "4", "--store", "sweep.jsonl"]) == 0
+            capsys.readouterr()
+        if argv == ["serve"]:
+            runs[name] = _serve_cli(main, cwd / "stores", capsys)
+        else:
+            runs[name] = _run(main, argv, capsys)
+    (rc, out, err), (want_rc, want_out, want_err) = runs["port"], runs["jax"]
+    assert rc == want_rc == (2 if argv == [] else 0), err
+    assert "ROADMAP" not in err
+    if argv == ["serve"]:
+        assert out.startswith("serving on http://127.0.0.1:") and "served 0 queries" in out
+    else:
+        assert _volatile_dropped(out) == _volatile_dropped(want_out)
+        assert err == want_err
 
 
 # --------------------------------------------------------------------------- #
