@@ -100,7 +100,35 @@ Phases, one JSON line each:
    Last, the estimation daemon on 127.0.0.1 (a free port): the 162 stencil
    configurations posted cold, then warm ten times, its records held equal
    to the sweep's, the warm queries per second, and the daemon stopped;
-8. serve   — ``repro_torch.launch.serve.serve`` on the card at full width:
+8. audit   — the static auditor (``repro_torch.analysis``) and the TPU
+   backend.  ``analysis.analyze_ir`` on ``"h100"`` over the 162 stencil and
+   49 LBM configurations the port launches at the paper grids, cold and then
+   warm (which must be all ``lint.cache_hits``), with the findings by rule
+   and severity; fails where any has an ``error`` finding.  Each perf lint
+   (``perf.uncoalesced``, ``perf.bank_conflict``, ``perf.occupancy``,
+   ``perf.capacity``) beside phase ``rank``'s times of the same
+   configurations (``results/rank_check.json``): how many it flags, the
+   median ms of those and of the rest, and how many of the ten fastest it
+   flags (no limit: the lints stay the JAX package's).  The lint gate,
+   ``Study(kernel, machines=["h100"], lint="error")`` over both spaces, cold:
+   its host seconds and whether its top is phase ``explore``'s; each top
+   launched through ``stencil25_cuda`` or ``lbm_d3q15_cuda`` at the paper
+   grid (counts zeroed before, read after: each must launch), held against
+   the plain version (f64, 1e-10 over the whole grid) and timed as phase
+   ``main`` times, beside phase ``rank``'s fastest.  ``Study.explain`` of
+   each pick and of phase ``rank``'s fastest configuration: limiter,
+   runner-up, margin, per-level volumes, predicted ms and DRAM bytes per LUP
+   beside the measured ms and effective bytes per LUP.  ``graph.step_time``
+   of OLMo-1B's train step (batch 4, seq 4096) with ``lint="annotate"``:
+   the kernels audited, the findings and the host seconds the audit adds
+   (the prediction must not move).  Last, on the card's host: the port's
+   CLI prints ``tests/golden/lint_stencil25.txt``,
+   ``lint_fixture_racy_store.txt`` and ``graph_zamba2_tpuv5e.txt``, and
+   ``Study.explain`` ``explain_stencil25_{a100,v100}.txt``, byte for byte
+   with the goldens' exit codes (fails otherwise), and a ``Study`` of each
+   ``*_tpu`` entry on ``tpuv5e`` and ``tpuv6e`` gives its top and host
+   seconds;
+9. serve   — ``repro_torch.launch.serve.serve`` on the card at full width:
    Qwen2.5-14B (all 48 layers, f32 parameters, bf16 compute), RWKV6-1.6B
    (all 24 layers), StableLM-12B (all 40 layers, head dim 160),
    MusicGen-large (all 48, head dim 64), LLaVA-NeXT-34B (24 of 60 layers,
@@ -123,7 +151,7 @@ Phases, one JSON line each:
    plain version's reading against an f64 one beside it.  Prefill and
    decode times (CUDA events), tokens per second, peak memory and the
    decode step against its weight-bytes bound;
-9. train   — ``train_olmo``: ``Trainer.fit`` on OLMo-1B at full width and
+10. train  — ``train_olmo``: ``Trainer.fit`` on OLMo-1B at full width and
    depth (16 layers, d 2048, f32 parameters and AdamW moments, bf16
    compute, remat) at ``train_4k``'s sequence of 4096 and a global batch of
    4 of its 256 (``launch.one_card``), 6 steps from seed 0, a checkpoint
@@ -155,7 +183,7 @@ Phases, one JSON line each:
    f32 (``kernel_f64_states_vs_f64``: what the forward's states add); two
    launches must give the same bits, and the backward is timed against its
    bound; warm median step, tokens per second, peak memory;
-10. sharded — a one-rank NCCL process group (a ``HashStore``: no network)
+11. sharded — a one-rank NCCL process group (a ``HashStore``: no network)
    and a (1, 1) ``DeviceMesh`` (``launch.mesh.make_test_mesh``) on the
    card, then two paths through the DTensor placements
    (``train/sharding.py``): ``train_sharded``, ``Trainer.fit`` with
@@ -173,7 +201,7 @@ Phases, one JSON line each:
    layer, the decode none, and the tokens equal ``serve_rwkv``'s; prefill,
    cache-fill and decode times beside ``serve_rwkv``'s, and peak memory.
    The group is destroyed at the end;
-11. step_time — the whole-model estimator, ``repro_torch.graph.step_time``
+12. step_time — the whole-model estimator, ``repro_torch.graph.step_time``
    on ``"h100"``, for each full-width path above with that path's own
    config (its depth cut included), batch, sequence and kind: the seven
    serve paths' prefills (batch 4, seq 512, ``forward``), ``train_olmo`` and
@@ -195,7 +223,10 @@ any failure and where CUDA or the port is missing.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import gc
+import io
 import itertools
 import json
 import math
@@ -227,7 +258,10 @@ from repro_torch.kernels.attention import kernel as attn_kernel  # noqa: E402
 from repro_torch.kernels.lbm_d3q15 import kernel as lbm_kernel  # noqa: E402
 from repro_torch.kernels.stencil25 import kernel as st_kernel  # noqa: E402
 from repro_torch.kernels.wkv import kernel as wkv_kernel  # noqa: E402
+from repro_torch import analysis  # noqa: E402
 from repro_torch import explore  # noqa: E402
+from repro_torch.explore import cli as explore_cli  # noqa: E402
+from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.core.machine import H100_SXM  # noqa: E402
 from repro_torch.explore import search as explore_search  # noqa: E402
 from repro_torch.explore import serve as explore_serve  # noqa: E402
@@ -331,6 +365,26 @@ STEP_TIME_MACHINE = "h100"  # the whole-model estimator's model of the card
 EXPLORE_MACHINE = "h100"  # the exploration's machine model of the card
 EXPLORE_BUDGET = 54  # SuccessiveHalving's full estimates: a third of the 162 stencil configurations
 EXPLORE_WARM_POSTS = 10  # warm posts of the 162 stencil configurations to the daemon
+AUDIT_MACHINE = "h100"  # the static auditor's model of the card (its perf lints)
+AUDIT_PERF_RULES = ("perf.uncoalesced", "perf.bank_conflict", "perf.occupancy", "perf.capacity")
+AUDIT_FASTEST = 10  # phase rank's fastest configurations, set beside the perf lints
+AUDIT_STEP = ("olmo-1b", 4, 4096, "train")  # (arch, batch, seq, kind): a model step through the auditor
+AUDIT_TPU_MACHINES = ("tpuv5e", "tpuv6e")  # the TPU backend's analytic machines, run on the host
+AUDIT_TPU_KERNELS = ("stencil25_tpu", "lbm_d3q15_tpu", "attention_tpu", "wkv_tpu")
+GOLDEN_DIR = ROOT / "tests" / "golden"
+# golden file -> (exit code, argv of the CLI), as tests/test_golden_lint.py
+# and tests/test_golden_graph.py run the JAX CLI
+AUDIT_CLI_GOLDENS = {
+    "lint_stencil25.txt": (0, ["lint", "--kernel", "stencil25", "--config",
+                               '{"block": [32, 4, 8], "fold": [1, 1, 1]}', "--machine", "V100"]),
+    "lint_fixture_racy_store.txt": (1, ["lint", "--fixture", "racy_store", "--machine", "V100"]),
+    "graph_zamba2_tpuv5e.txt": (0, ["graph", "--model", "zamba2-7b", "--smoke", "--machine", "tpuv5e",
+                                    "--mesh", "data=4,model=2", "--batch", "8", "--seq", "128",
+                                    "--kind", "train"]),
+}
+# golden file -> machine, for Study.explain as tests/test_obs.py calls it
+AUDIT_EXPLAIN_GOLDENS = {"explain_stencil25_v100.txt": "v100", "explain_stencil25_a100.txt": "a100"}
+AUDIT_EXPLAIN_CFG = {"block": (64, 2, 8), "fold": (1, 2, 1)}
 # text tokens after the frontend's stub embeddings (n_frontend_tokens of
 # frontend_dim) in the forward of a served config with a frontend
 FRONTEND_TEXT_TOKENS = 256
@@ -1257,6 +1311,238 @@ def phase_explore(rank: dict) -> dict:
     return res
 
 
+def _cfg_key(cfg: dict) -> tuple:
+    return tuple(cfg["block"]), tuple(cfg["fold"])
+
+
+def audit_spaces() -> dict:
+    """Step 1 of phase audit: ``analysis.analyze_ir`` on the H100 model over
+    every configuration of both paper spaces that the port launches, cold
+    (both caches cleared) and then warm.  Fails where a configuration has an
+    ``error`` finding, or the warm pass is not all ``lint.cache_hits``."""
+    analysis.clear_cache()
+    out = {}
+    for kernel, cfgs, build in (("stencil25", stencil25.config_space(STENCIL_SHAPE), appspec.star3d_ir),
+                                ("lbm_d3q15", lbm.config_space(LBM_SHAPE), appspec.lbm_d3q15_ir)):
+        irs = [build(**cfg) for cfg in cfgs]
+        passes = {}
+        for name in ("cold", "warm"):
+            hits = obs_metrics.counter("lint.cache_hits").value
+            t0 = time.perf_counter()
+            reports = [analysis.analyze_ir(ir, AUDIT_MACHINE) for ir in irs]
+            passes[name] = (time.perf_counter() - t0, obs_metrics.counter("lint.cache_hits").value - hits)
+        if passes["warm"][1] != len(irs):
+            fail(f"audit: {kernel}'s warm pass was {passes['warm'][1]:g} cache hits of {len(irs)}")
+        errors = [list(_cfg_key(c)) for c, rep in zip(cfgs, reports) if not rep.ok("error")]
+        if errors:
+            fail(f"audit: configurations the port launches have error findings: {kernel} {errors}")
+        by_rule = collections.Counter(f"{f.rule} [{f.severity}]" for rep in reports for f in rep.findings)
+        out[kernel] = {"configs": len(irs), "cold_s": passes["cold"][0], "warm_s": passes["warm"][0],
+                       "warm_cache_hits": passes["warm"][1],
+                       "findings": dict(sorted(by_rule.items())),
+                       "cfgs": cfgs, "reports": reports}
+    return out
+
+
+def audit_beside_rank(spaces: dict, rank_file: dict) -> dict:
+    """Step 2: each perf rule's flagged configurations beside phase rank's
+    measured times of the same configurations (the stencil's staged kernel,
+    the main path's): how many it flags, the median ms of the flagged and
+    of the rest, and how many of the fastest ``AUDIT_FASTEST`` it flags."""
+    out = {}
+    for kernel, kind in (("stencil25", "staged"), ("lbm_d3q15", "kernel")):
+        ms = {_cfg_key(r): r[kind]["ms"] for r in rank_file["configs"][kernel]}
+        keys = [_cfg_key(c) for c in spaces[kernel]["cfgs"]]
+        if sorted(keys) != sorted(ms):
+            fail(f"audit: {kernel}'s audited configurations are not phase rank's")
+        flagged = {rule: set() for rule in AUDIT_PERF_RULES}
+        for key, rep in zip(keys, spaces[kernel]["reports"]):
+            for f in rep.findings:
+                if f.rule in flagged:
+                    flagged[f.rule].add(key)
+        fastest = sorted(ms, key=ms.get)[:AUDIT_FASTEST]
+
+        def median(ks):
+            return statistics.median(ms[k] for k in ks) if ks else None
+
+        rules = {}
+        for rule, hit in flagged.items():
+            rules[rule] = {"flagged": len(hit), "median_ms_flagged": median(hit),
+                           "median_ms_rest": median([k for k in keys if k not in hit]),
+                           f"flagged_in_fastest_{AUDIT_FASTEST}": sum(k in hit for k in fastest)}
+        out[kernel] = {"configs": len(keys), "rank_kernel": kind, "median_ms_all": median(keys),
+                       "fastest_ms": ms[fastest[0]], "rules": rules}
+    return out
+
+
+def audit_gate(explored: dict) -> dict:
+    """Step 3 (host part): ``Study(kernel, machines=["h100"], lint="error")``
+    over both paper spaces, cold: every configuration audited before it is
+    estimated.  Its top against phase explore's ungated top."""
+    out = {}
+    for kernel in ("stencil25", "lbm_d3q15"):
+        t0 = time.perf_counter()
+        study = explore.Study(kernel, machines=[AUDIT_MACHINE], lint="error")
+        res = study.result()
+        seconds = time.perf_counter() - t0
+        top = res.top(1)[0].config
+        ungated = explored["picks"][kernel]
+        removed = explored["sweeps"][kernel]["configs"] - len(res.records)
+        out[kernel] = {"study": study, "top": top, "seconds": seconds, "configs": len(res.records),
+                       "reports": len(study.lint_reports),
+                       "top_equals_ungated": _cfg_key(top) == _cfg_key(ungated),
+                       "ungated_top": {"block": ungated["block"], "fold": ungated["fold"]},
+                       "removed_by_gate": removed}
+        if removed or len(study.lint_reports) != len(res.records):
+            fail(f"audit: the {kernel} lint gate left {len(res.records)} configurations with "
+                 f"{len(study.lint_reports)} reports, phase explore swept {explored['sweeps'][kernel]['configs']}")
+    return out
+
+
+def audit_explain(study: dict, rank_file: dict) -> dict:
+    """Step 4: ``Study.explain`` for each paper space's pick and for phase
+    rank's fastest configuration: the limiter, its runner-up and margin, the
+    per-level volumes, and the predicted time and DRAM bytes per LUP beside
+    the measured time and effective bytes per LUP (``rank_check.json``)."""
+    out = {}
+    for kernel, kind in (("lbm_d3q15", "kernel"), ("stencil25", "staged")):
+        recs = {_cfg_key(r): r for r in rank_file["configs"][kernel]}
+        fastest = min(recs, key=lambda k: recs[k][kind]["ms"])
+        targets = {"pick": _cfg_key(study[kernel]["top"]), "fastest": fastest}
+        out[kernel] = {}
+        for label, (block, fold) in targets.items():
+            rep = study[kernel]["study"].explain({"block": block, "fold": fold})
+            levels = {lv.level: {"total": lv.total, "unit": lv.unit, **lv.parts} for lv in rep.levels}
+            rec = recs[(block, fold)][kind]
+            out[kernel][label] = {
+                "block": list(block), "fold": list(fold), "limiter": rep.limiter.limiter,
+                "runner_up": rep.limiter.runner_up, "margin": rep.limiter.margin,
+                "terms_s": rep.limiter.terms, "levels": levels, "wave": rep.wave,
+                "lint": sorted({f.rule for f in rep.lint.findings}) if rep.lint is not None else None,
+                "predicted_ms": rep.score["time_s"] * 1e3, "predicted_glups": rep.score["glups"],
+                "predicted_dram_bytes_per_lup": levels["DRAM<->L2"]["total"],
+                "measured_ms": rec["ms"], "measured_glups": rec["glups"],
+                "effective_bytes_per_lup": rec["bytes_per_lup"],
+                "measured_rank": sorted(r[kind]["ms"] for r in recs.values()).index(rec["ms"])}
+    return out
+
+
+def audit_step() -> dict:
+    """Step 5: ``graph.step_time`` of one model step on the H100 model, with
+    and without ``lint="annotate"``; the audit may not move the prediction."""
+    arch, batch, seq, kind = AUDIT_STEP
+    cfg = get_arch(arch)
+    t0 = time.perf_counter()
+    plain = step_time(cfg, AUDIT_MACHINE, batch=batch, seq=seq, kind=kind)
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    linted = step_time(cfg, AUDIT_MACHINE, batch=batch, seq=seq, kind=kind, lint="annotate")
+    lint_s = time.perf_counter() - t0
+    if linted.step_time_s != plain.step_time_s:
+        fail("audit: lint='annotate' moved the step's prediction")
+    by_rule = collections.Counter(f"{f.rule} [{f.severity}]" for rep in linted.lint_reports.values()
+                                  for f in rep.findings)
+    return {"arch": arch, "batch": batch, "seq": seq, "kind": kind, "nodes": len(linted.dag.nodes),
+            "unique_kernels": len(linted.unique), "kernels_audited": len(linted.lint_reports),
+            "findings": dict(sorted(by_rule.items())), "step_time_s": linted.step_time_s,
+            "host_s": plain_s, "host_s_with_lint": lint_s, "lint_extra_s": lint_s - plain_s}
+
+
+def audit_goldens() -> dict:
+    """Step 6: the JAX package's golden files through the port on this host:
+    the CLI's ``lint`` and ``graph`` (a TPU machine) and ``Study.explain``,
+    byte for byte with the golden's exit code; then a ``Study`` of each
+    ``*_tpu`` entry on both TPU machines (the TPU backend runs on the host)."""
+    out = {"files": {}, "tpu_studies": {}}
+    for name, (want_rc, argv) in AUDIT_CLI_GOLDENS.items():
+        analysis.clear_cache()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = explore_cli.main(argv)
+        out["files"][name] = {"rc": rc, "want_rc": want_rc,
+                              "byte_for_byte": buf.getvalue() == (GOLDEN_DIR / name).read_text()}
+    for name, machine in AUDIT_EXPLAIN_GOLDENS.items():
+        rep = explore.Study("stencil25", sample=24, seed=7, machine=machine).explain(dict(AUDIT_EXPLAIN_CFG))
+        out["files"][name] = {"byte_for_byte": rep.render() + "\n" == (GOLDEN_DIR / name).read_text()}
+    bad = [n for n, r in out["files"].items() if not r["byte_for_byte"] or r.get("rc") != r.get("want_rc")]
+    if bad:
+        fail(f"audit: the port does not print these goldens as the JAX package does: {bad}")
+    for kernel in AUDIT_TPU_KERNELS:
+        t0 = time.perf_counter()
+        study = explore.Study(kernel, machines=list(AUDIT_TPU_MACHINES))
+        res = study.run()
+        seconds = time.perf_counter() - t0
+        tops = {}
+        for label, r in res.results.items():
+            best = r.top(1)[0]
+            if not (best.feasible and math.isfinite(best.time_s) and best.time_s > 0):
+                fail(f"audit: {kernel}'s TPU top on {label} is not a feasible finite estimate")
+            tops[label] = {"config": best.config["name"], "time_us": best.time_s * 1e6, "limiter": best.limiter}
+        out["tpu_studies"][kernel] = {"configs": len(next(iter(res.results.values())).records),
+                                      "seconds": seconds, "tops": tops}
+    return out
+
+
+def phase_audit(explored: dict) -> dict:
+    """The static auditor (``repro_torch.analysis``) and the TPU backend, as
+    the module docstring says; the lint gate's picks run on the card."""
+    t_phase = time.perf_counter()
+    spaces = audit_spaces()
+    rank_file = json.loads((ROOT / "results" / "rank_check.json").read_text())
+    beside = audit_beside_rank(spaces, rank_file)
+    gate = audit_gate(explored)
+    host_s = time.perf_counter() - t_phase
+
+    # --- the gate's picks on the card: the path, counted --------------------
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    src = torch.randn(STENCIL_SHAPE, generator=gen, device="cuda", dtype=torch.float64)
+    fields = lbm.init_fields(LBM_SHAPE, seed=0, dtype=torch.float64)
+    torch.cuda.synchronize()
+    zero_counts()
+    seen = {}
+    for kernel in ("stencil25", "lbm_d3q15"):
+        block, fold = _cfg_key(gate[kernel]["top"])
+        counter = st_kernel.stencil25_cuda if kernel == "stencil25" else lbm_kernel.lbm_d3q15_cuda
+        before = counter.launches
+        if kernel == "stencil25":
+            st_kernel.stencil25_cuda(src, 4, block, fold)
+        else:
+            lbm_kernel.lbm_d3q15_cuda(*fields, block=block)
+        seen[kernel] = counter.launches - before
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if not all(seen.values()):
+        fail(f"audit: a lint gate's pick did not launch its kernel: {seen}, {launches}")
+    picks = {}
+    for kernel in ("stencil25", "lbm_d3q15"):
+        inputs = ({"src": src, "plain": stencil25.stencil25_plain(src, 4)} if kernel == "stencil25"
+                  else {"fields": fields, "plain": lbm.lbm_step_plain(*fields)})
+        picks[kernel] = explore_run_pick(kernel, gate[kernel]["top"], inputs)
+        picks[kernel].update(beside_rank(rank_file, kernel, picks[kernel]))
+        del inputs
+    del src, fields
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    explained = audit_explain(gate, rank_file)
+    step = audit_step()
+    goldens = audit_goldens()
+    host_s += time.perf_counter() - t0
+    res = {"phase": "audit", "machine": AUDIT_MACHINE,
+           "spaces": {k: {kk: vv for kk, vv in v.items() if kk not in ("cfgs", "reports")}
+                      for k, v in spaces.items()},
+           "perf_lints_beside_rank": beside,
+           "gate": {k: {kk: vv for kk, vv in v.items() if kk != "study"} for k, v in gate.items()},
+           "picks": picks, "launches": launches, "explain": explained, "step": step, "goldens": goldens,
+           "host_s": host_s, "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    bad = {n: r["max_abs_err"] for n, r in picks.items() if not r["max_abs_err"] <= TOL[torch.float64]}
+    if bad:
+        fail(f"audit: the lint gate's picks disagree with the plain versions: {bad}")
+    return res
+
+
 def phase_probe(libs: dict) -> dict:
     """The stencil probe's variants in turns at the stencil's main shape."""
     res = stencil_probe.run(libs)
@@ -2133,6 +2419,7 @@ def main() -> int:
     main_results = phase_main_paper()
     phase_probe(probe_libs)
     explored = phase_explore(phase_rank())
+    audited = phase_audit(explored)
     main_results += [phase_main_attention(), phase_main_wkv()]
     served = {path: phase_main_serve(path) for path in SERVE}
     train = phase_train_olmo()
@@ -2143,6 +2430,8 @@ def main() -> int:
         r["launches_by_path"] = {OWN_PATH[r["name"]]: r["launches"]}
         if explored["launches"][r["name"]]:
             r["launches_by_path"]["explore"] = explored["launches"][r["name"]]
+        if audited["launches"][r["name"]]:
+            r["launches_by_path"]["audit"] = audited["launches"][r["name"]]
         for path, res in served.items():
             if res["launches"][r["name"]]:
                 r["launches_by_path"][path] = res["launches"][r["name"]]

@@ -1,7 +1,10 @@
-"""GPU machine models: a parametric architecture registry.
+"""Machine models: a parametric architecture registry.
 
-Copy of the GPU half of ``repro.core.machine``; the constants and the
-lookup must stay identical to it (held by ``tests/test_torch_estimator.py``).
+Copy of ``repro.core.machine``; the constants and the lookup must stay
+identical to it (held by ``tests/test_torch_estimator.py`` and
+``tests/test_torch_tpu_estimator.py``).  The TPU machines are analytic
+models that run on the host: the TPU backend (``core/tpu_estimator``) prices
+Pallas configurations with them, as the JAX package does.
 
 The paper instantiates its estimator on one machine (V100); the method itself
 is architecture-parametric — the authors' follow-up (arXiv:2204.14242,
@@ -19,19 +22,22 @@ GPU (paper §III estimator):
   @ 1.98 GHz boost, L1 256 kB, L2 50 MB, HBM3 ~3.0 TB/s (STREAM scale),
   64 FP64 lanes/SM.
 
-``MACHINES`` / ``get_machine`` form the registry used by block selection
-and by the whole-model estimator (``repro_torch.graph``); lookups are case-
-and punctuation-insensitive (``"a100"``, ``"A100-40GB"`` and ``"a100_40gb"``
-all resolve to the same entry).  A TPU name raises ``NotImplementedError``:
-the port has no TPU machine models (ROADMAP Queue 1 item 10).
+TPU (Pallas adaptation):
 
-``MeshSpec`` is the jax-free device-mesh geometry the whole-model replay
-reads; the port keeps its GPU bandwidths only.
+* ``TPU_V5E`` — 197 TFLOP/s bf16, 819 GB/s HBM, VMEM 128 MB, (8,128) native
+  vector tiling, 128x128 MXU, ~50 GB/s/link ICI.
+* ``TPU_V6E`` — Trillium: 918 TFLOP/s bf16, 1640 GB/s HBM, 32 GB HBM,
+  256x256 MXU, ~100 GB/s/link ICI.
+
+``MACHINES`` / ``get_machine`` form the registry used by estimation call
+sites, the exploration engine and the CLI; lookups are case- and
+punctuation-insensitive (``"a100"``, ``"A100-40GB"`` and ``"a100_40gb"`` all
+resolve to the same entry).
 """
 from __future__ import annotations
 
 import re
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from .capacity import A100_FITS, DEFAULT_FITS, H100_FITS, CapacityFits
 
@@ -123,14 +129,59 @@ H100_SXM = GPUMachine(
 )
 
 
+@dataclass(frozen=True)
+class TPUMachine:
+    """Single TPU chip (v5e-class) + ICI fabric constants."""
+
+    name: str = "tpu-v5e"
+    peak_bf16: float = 197e12  # FLOP/s per chip
+    peak_fp32: float = 98.5e12
+    bw_hbm: float = 819e9  # B/s per chip
+    hbm_bytes: int = 16 * 2**30
+    vmem_bytes: int = 128 * 2**20
+    vmem_usable: int = 100 * 2**20  # leave headroom for XLA-reserved scratch
+    bw_ici_link: float = 50e9  # B/s per link per direction
+    ici_links: int = 4  # 2D torus: +-x, +-y
+    bw_inter_pod: float = 25e9  # effective per-chip cross-pod (DCN-assisted) B/s
+    mxu_dim: int = 128
+    sublanes: int = 8  # native (8, 128) fp32 vector tile
+    lanes: int = 128
+    vpu_flops: float = 4e12  # elementwise VPU throughput, FLOP/s
+
+    def peak_flops(self, dtype_bits: int) -> float:
+        return self.peak_bf16 if dtype_bits <= 16 else self.peak_fp32
+
+    def sublane_multiple(self, dtype_bits: int) -> int:
+        """Second-to-last-dim tiling multiple: (8,128) fp32, (16,128) bf16, (32,128) int8."""
+        return self.sublanes * max(1, 32 // dtype_bits)
+
+
+TPU_V5E = TPUMachine()
+
+# Trillium (v6e): ~4.7x v5e peak bf16, 1640 GB/s HBM, 32 GB HBM per chip,
+# 256x256 MXU, roughly doubled per-link ICI bandwidth.
+TPU_V6E = TPUMachine(
+    name="tpu-v6e",
+    peak_bf16=918e12,
+    peak_fp32=459e12,
+    bw_hbm=1640e9,
+    hbm_bytes=32 * 2**30,
+    bw_ici_link=100e9,
+    mxu_dim=256,
+    vpu_flops=14.7e12,  # scaled with the 4096-lane (vs 1024) Trillium VPU
+)
+
+
 # --------------------------------------------------------------------------- #
 # architecture registry
 
 
-MACHINES: dict[str, GPUMachine] = {
+MACHINES: dict[str, GPUMachine | TPUMachine] = {
     "V100": V100,
     "A100": A100_40GB,
     "H100": H100_SXM,
+    "TPUv5e": TPU_V5E,
+    "TPUv6e": TPU_V6E,
 }
 
 
@@ -147,27 +198,17 @@ def _lookup() -> dict[str, str]:
     return table
 
 
-# the JAX package's TPU registry keys and model names, normalized
-TPU_MACHINE_NAMES = ("tpuv5e", "tpuv6e")
-
-
 def canonical_machine_name(name: str) -> str:
     """Registry key for any accepted spelling (``"a100"`` -> ``"A100"``)."""
     from .suggest import unknown_name_message
 
     key = _lookup().get(_norm(name))
     if key is None:
-        if _norm(name) in TPU_MACHINE_NAMES:
-            raise NotImplementedError(
-                f"machine {name!r} is a TPU: the port has no TPU backend "
-                "(core/tpu_estimator and a counterpart of frontend/pallas; "
-                "ROADMAP Queue 1 item 10)"
-            )
         raise KeyError(unknown_name_message("machine", name, MACHINES))
     return key
 
 
-def get_machine(name: str) -> GPUMachine:
+def get_machine(name: str) -> GPUMachine | TPUMachine:
     """Resolve a machine by registry key, full model name, or any
     case/punctuation variant thereof; unknown names get a did-you-mean."""
     return MACHINES[canonical_machine_name(name)]
@@ -177,9 +218,13 @@ def gpu_machines() -> dict[str, GPUMachine]:
     return {k: m for k, m in MACHINES.items() if isinstance(m, GPUMachine)}
 
 
+def tpu_machines() -> dict[str, TPUMachine]:
+    return {k: m for k, m in MACHINES.items() if isinstance(m, TPUMachine)}
+
+
 @dataclass(frozen=True)
 class MeshSpec:
-    """Logical device mesh (axis name -> size)."""
+    """Logical device mesh over the ICI fabric (axis name -> size)."""
 
     axes: tuple[tuple[str, int], ...]
     inter_pod_axes: tuple[str, ...] = ("pod",)
@@ -197,11 +242,23 @@ class MeshSpec:
                 return s
         raise KeyError(name)
 
-    def bandwidth(self, name: str, machine: GPUMachine) -> float:
-        """Per-device collective bandwidth on one mesh axis: NVLink within a
-        node, the NIC across nodes (the pod axis)."""
+    def axis_bandwidth(self, name: str, tpu: TPUMachine = TPU_V5E) -> float:
+        """Per-chip bandwidth available to collectives on one mesh axis.
+
+        Intra-pod axes ride the 2D torus (2 links per axis direction pair);
+        the pod axis crosses the data-center network.
+        """
+        return self.bandwidth(name, tpu)
+
+    def bandwidth(self, name: str, machine) -> float:
+        """Per-device collective bandwidth on one mesh axis, for either
+        machine family: TPU axes ride the ICI torus / DCN, GPU axes ride
+        NVLink within a node and the NIC across nodes (the whole-model
+        replay's link-bandwidth model for communication edges)."""
         if name in self.inter_pod_axes:
-            return machine.bw_inter_node
+            return getattr(machine, "bw_inter_pod", None) or machine.bw_inter_node
+        if isinstance(machine, TPUMachine):
+            return 2 * machine.bw_ici_link  # bidirectional ring on one torus dim
         return machine.bw_link
 
 

@@ -1,19 +1,18 @@
 """Unified estimate schema and the backend-agnostic :class:`Estimator` protocol.
 
-Copy of the GPU half of ``repro.core.record``:
+Copy of ``repro.core.record``:
 
 * :class:`EstimateRecord` — one estimated configuration with the fields every
   backend fills (predicted time, binding limiter, feasibility, per-memory-level
-  volumes), a flat ``metrics`` mapping and, on the GPU path, the full
-  :class:`~repro_torch.core.ranking.RankedConfig`;
-* :class:`Estimator` — the protocol (``estimate_batch(irs, machine) ->
-  list[EstimateRecord]``) that :class:`repro_torch.core.estimator.GPUAnalyticEstimator`
-  implements and the exploration and the whole-model estimator call;
+  volumes), a flat ``metrics`` mapping (the Pareto-objective vocabulary) and,
+  on the GPU path, the full :class:`~repro_torch.core.ranking.RankedConfig`;
+* :class:`Estimator` — the protocol both backends implement
+  (``estimate_batch(irs, machine) -> list[EstimateRecord]``): the GPU §III
+  analytic pipeline (:class:`repro_torch.core.estimator.GPUAnalyticEstimator`)
+  and the Pallas adaptation
+  (:class:`repro_torch.core.tpu_estimator.TPUPallasEstimator`);
 * :func:`record_payload` / :func:`record_from_payload` — the store schema
-  (v4), exact float round-trip via ``repr``.
-
-The JAX package's TPU records (``tpu_metrics``, ``tpu_record``) wait for the
-port's TPU backend (ROADMAP Queue 1 item 10).
+  (v4): one JSON shape for both backends, exact float round-trip via ``repr``.
 """
 from __future__ import annotations
 
@@ -41,7 +40,7 @@ class EstimateRecord:
 
     Shared fields are filled by every backend; ``metrics`` carries the flat
     backend vocabulary the Pareto objectives and CLI printers consume, and
-    ``ranked`` the GPU path's full estimate+prediction.
+    ``ranked`` the GPU path's full estimate+prediction (``None`` on TPU).
     """
 
     config: dict  # config identity (GPU config dict / TPU {"name", **meta})
@@ -59,12 +58,12 @@ class EstimateRecord:
 class Estimator(Protocol):
     """A backend's batched estimation entry point.
 
-    ``irs`` are canonical :class:`~repro_torch.frontend.ir.AccessIR` objects
-    (element granularity for the GPU §III pipeline); ``configs``, when
-    given, is the aligned list of config-identity dicts to stamp on the
-    records (defaults to ``{"name": ir.name, **ir.meta}``).  ``cache`` is an
-    optional :class:`~repro_torch.core.estimator.EstimateCache` shared across
-    calls/machines for the machine-independent invariants.
+    ``irs`` are canonical :class:`~repro_torch.frontend.ir.AccessIR` objects (element
+    granularity for the GPU §III pipeline, block granularity for Pallas);
+    ``configs``, when given, is the aligned list of config-identity dicts to
+    stamp on the records (defaults to ``{"name": ir.name, **ir.meta}``).
+    ``cache`` is an optional :class:`~repro_torch.core.estimator.EstimateCache`
+    shared across calls/machines for the machine-independent invariants.
     """
 
     backend: str
@@ -103,6 +102,19 @@ def gpu_metrics(rc: RankedConfig, machine) -> dict:
     }
 
 
+def tpu_metrics(est) -> dict:
+    """Flat TPU metric dict (:class:`~repro_torch.core.tpu_estimator.TPUEstimate`)."""
+    return {
+        "time_s": est.time,
+        "limiter": est.limiter,
+        "feasible": est.feasible,
+        "vmem_bytes": est.vmem_bytes,
+        "hbm_bytes": est.hbm_bytes,
+        "hbm_redundant": est.hbm_redundant,
+        "layout_efficiency": est.layout_efficiency,
+    }
+
+
 def gpu_record(
     config: dict,
     est: VolumeEstimate,
@@ -129,8 +141,22 @@ def gpu_record(
     )
 
 
+def tpu_record(config: dict, est, fingerprint: str | None = None) -> EstimateRecord:
+    """Assemble the unified record from one TPU/Pallas estimate."""
+    return EstimateRecord(
+        config=retuple(dict(config)),
+        backend="tpu",
+        time_s=est.time,
+        limiter=est.limiter,
+        feasible=est.feasible,
+        volumes={"hbm": est.hbm_bytes, "vmem": float(est.vmem_bytes)},
+        metrics=tpu_metrics(est),
+        fingerprint=fingerprint,
+    )
+
+
 # --------------------------------------------------------------------------- #
-# store payload (schema v4): one JSON shape for every backend, exact float
+# store payload (schema v4): one JSON shape for both backends, exact float
 # round-trip (json floats serialize via repr), so cache hits reconstruct the
 # exact record a live estimate would yield.
 

@@ -19,9 +19,7 @@ is the search layer that makes that fast at scale, behind ONE user-facing API:
   queries, cold misses batched across clients,
 * :mod:`repro_torch.explore.cli`      — ``python -m repro_torch.explore --kernel stencil25 --top 5``.
 
-Copy of ``repro.explore``; its exports less the TPU ones (the port has no TPU
-backend: ROADMAP Queue 1 item 10).  ``Study.explain`` and ``lint=`` wait for
-item 9.
+Copy of ``repro.explore``, with the same exports.
 
 Quickstart::
 
@@ -31,11 +29,12 @@ Quickstart::
     best = study.top(5)            # best-first SweepRecords
     frontier = study.pareto()      # non-dominated (GLUPs, DRAM B/LUP, occupancy)
 
-    multi = Study("stencil25", machines=["v100", "a100", "h100"])
+    multi = Study("attention", backend="tpu", machines=["tpuv5e", "tpuv6e"])
     shift = multi.compare()        # Kendall tau + winner placements
 """
 from .pareto import (
     GPU_OBJECTIVES,
+    TPU_OBJECTIVES,
     default_objectives,
     pareto_front,
     top_k,
@@ -99,6 +98,7 @@ __all__ = [
     "SweepRecord",
     "SweepResult",
     "SweepStats",
+    "TPU_OBJECTIVES",
     "WinnerPlacement",
     "canonical_key",
     "canonical_machine_name",

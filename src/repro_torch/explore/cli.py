@@ -12,13 +12,9 @@ sweeps the same space over several architectures in one batched run and
 reports how the predicted ranking shifts between them (Kendall tau + where
 each machine's winner places elsewhere).
 
-Copy of ``repro.explore.cli``: the kernel sweep and the ``graph``,
-``search``, ``store`` and ``serve`` subcommands print what the JAX CLI
-prints (``tests/test_torch_explore.py`` holds the sweep to
-``tests/golden/explore_stencil25_{a100,v100}.json``).  The port has no TPU
-backend, so ``--backend tpu``, a ``*_tpu`` kernel and a TPU machine exit 2
-naming ROADMAP Queue 1 item 10; ``lint`` and ``--explain`` exit 2 naming
-item 9 (``repro.analysis`` and ``repro.obs.explain``).
+Copy of ``repro.explore.cli``: every subcommand prints what the JAX CLI
+prints, byte for byte where the JAX package keeps a golden file
+(``tests/golden/explore_stencil25_*.json``, ``lint_*.txt``, ``graph_*.txt``).
 """
 from __future__ import annotations
 
@@ -31,21 +27,11 @@ from ..store import ResultStore, open_store
 from .registry import (
     KERNELS,
     MACHINES,
-    NO_TPU,
     canonical_machine_name,
     get_kernel,
     get_machine,
 )
 from .study import CrossMachineResult, Study, SweepResult, default_stores
-
-NO_LINT = (
-    "the static analysis (repro.analysis) is not ported: it waits for "
-    "ROADMAP Queue 1 item 9"
-)
-NO_EXPLAIN = (
-    "--explain needs repro.obs.explain, which is not ported: it waits for "
-    "ROADMAP Queue 1 item 9"
-)
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -151,6 +137,18 @@ def _print_gpu_rows(records) -> None:
         )
 
 
+def _print_tpu_rows(records) -> None:
+    print("rank | config                        | time us | limiter | VMEM MiB | layout")
+    for i, r in enumerate(records):
+        m = r.metrics
+        star = "*" if r.from_cache else " "
+        t = m["time_s"] * 1e6
+        print(
+            f"{i:4d}{star}| {_fmt_cfg(r.config):29s} | {t:7.1f} "
+            f"| {m['limiter']:7s} | {m['vmem_bytes'] / 2**20:8.1f} | {m['layout_efficiency']:.2f}"
+        )
+
+
 def _summary(res: SweepResult, top: int) -> dict:
     return {
         "kernel": res.kernel,
@@ -181,7 +179,7 @@ def _fmt_score(score, metric: str) -> str:
 
 
 def _print_cross(cm: CrossMachineResult, top: int, args_pareto: bool = False) -> None:
-    printer = _print_gpu_rows
+    printer = _print_gpu_rows if cm.backend == "gpu" else _print_tpu_rows
     for name in cm.machines:
         res = cm.results[name]
         s = res.stats
@@ -262,7 +260,7 @@ def _graph_main(argv: list[str]) -> int:
                 cfg, args.machine, mesh=args.mesh, batch=args.batch,
                 seq=args.seq, kind=args.kind, method=args.method,
             )
-        except (ValueError, KeyError, TypeError, NotImplementedError) as e:
+        except (ValueError, KeyError, TypeError) as e:
             return _fail(e)
     finally:
         if args.trace:
@@ -295,7 +293,7 @@ def main(argv: list[str] | None = None) -> int:
     if argv and argv[0] == "store":
         return _store_main(argv[1:])
     if argv and argv[0] == "lint":
-        return _fail(NO_LINT)
+        return _lint_main(argv[1:])
     args = _build_parser().parse_args(argv)
     if args.list:
         for name, e in sorted(KERNELS.items()):
@@ -315,11 +313,8 @@ def main(argv: list[str] | None = None) -> int:
         entry = get_kernel(args.kernel, backend=args.backend)
     except KeyError as e:
         return _fail(e)
-    if entry.backend == "tpu":
-        return _fail(f"kernel {entry.name!r}: {NO_TPU}")
-    if args.explain is not None:
-        return _fail(NO_EXPLAIN)
-    method = args.method
+    # the TPU backend has one estimation method; label its store accordingly
+    method = args.method if entry.backend == "gpu" else "tpu"
     if args.trace:
         obs_trace.enable()
     try:
@@ -351,20 +346,32 @@ def _run(args, entry, method: str) -> int:
                 alias=args.alias,
             )
             cm = study.compare()
-        except (ValueError, KeyError, NotImplementedError) as e:
+        except (ValueError, KeyError) as e:
             return _fail(e)
+        report = None
+        if args.explain is not None:
+            try:
+                report = study.explain(args.explain)
+            except (ValueError, KeyError, IndexError, TypeError) as e:
+                return _fail(e)
         if args.as_json:
-            print(json.dumps(cm.summary(args.top), indent=2, default=list))
+            out = cm.summary(args.top)
+            if report is not None:
+                out["explain"] = report.to_json()
+            print(json.dumps(out, indent=2, default=list))
             return 0
         print(f"cross-machine exploration of {cm.kernel} over {', '.join(cm.machines)} "
               f"({len(next(iter(cm.results.values())).records)} common-space configs per machine)")
         _print_cross(cm, args.top, args.pareto)
+        if report is not None:
+            print()
+            print(report.render())
         return 0
 
     try:
         machine_key = canonical_machine_name(args.machine or entry.default_machine)
         get_machine(machine_key)
-    except (KeyError, NotImplementedError) as e:
+    except KeyError as e:
         return _fail(e)
     store = None
     if not args.no_store:
@@ -386,10 +393,19 @@ def _run(args, entry, method: str) -> int:
             alias=args.alias,
         )
         res = study.result()
-    except (ValueError, KeyError, NotImplementedError) as e:
+    except (ValueError, KeyError) as e:
         return _fail(e)
+    report = None
+    if args.explain is not None:
+        try:
+            report = study.explain(args.explain)
+        except (ValueError, KeyError, IndexError, TypeError) as e:
+            return _fail(e)
     if args.as_json:
-        print(json.dumps(_summary(res, args.top), indent=2, default=list))
+        out = _summary(res, args.top)
+        if report is not None:
+            out["explain"] = report.to_json()
+        print(json.dumps(out, indent=2, default=list))
         return 0
     s = res.stats
     print(f"exploring {res.kernel} on {res.machine} (method={res.method}): "
@@ -402,11 +418,15 @@ def _run(args, entry, method: str) -> int:
           + (f" (store {res.store_path}, {len(store)} entries)" if store else ""))
     print(f"swept {len(res.records)} configs in {s.wall_s:.1f}s "
           f"({len(res.records) / max(s.wall_s, 1e-9):.0f} cfg/s)\n")
-    _print_gpu_rows(res.top(args.top))
+    printer = _print_gpu_rows if res.backend == "gpu" else _print_tpu_rows
+    printer(res.top(args.top))
     if args.pareto:
         front = res.pareto()
         print(f"\npareto front ({len(front)} non-dominated configs):")
-        _print_gpu_rows(front)
+        printer(front)
+    if report is not None:
+        print()
+        print(report.render())
     return 0
 
 
@@ -489,7 +509,7 @@ def _search_main(argv: list[str]) -> int:
             if args.machines
             else [canonical_machine_name(args.machine or entry.default_machine)]
         )
-    except (KeyError, NotImplementedError) as e:
+    except KeyError as e:
         return _fail(e)
     method = args.method
     stores = None
@@ -576,6 +596,153 @@ def _search_main(argv: list[str]) -> int:
         other = result.result(label)
         print(f"\nfinalists on {label} ({len(other.records)} configs):")
         _print_gpu_rows(other.records[: args.top])
+    return 0
+
+
+def _lint_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m repro_torch.explore lint",
+        description="Static access audit (repro_torch.analysis): race / bounds / "
+                    "aliasing / coverage proofs plus coalescing, bank-conflict "
+                    "and capacity lints over a kernel's AccessIR — before any "
+                    "code exists.",
+    )
+    p.add_argument("--kernel", default=None,
+                   help="kernel entry to audit (see `python -m repro_torch.explore --list`)")
+    p.add_argument("--backend", default=None, choices=("gpu", "tpu"),
+                   help="resolve a kernel family to its gpu or tpu entry")
+    p.add_argument("--config", default=None, metavar="JSON",
+                   help="one GPU config dict, e.g. "
+                        "'{\"block\": [32, 4, 8], \"fold\": [1, 1, 1]}' "
+                        "(default: every config of the entry's space); on tpu "
+                        "entries a substring filter on the PallasConfig name")
+    p.add_argument("--all", action="store_true", dest="lint_all",
+                   help="audit every registry kernel (both backends, full spaces)")
+    p.add_argument("--fixture", default=None, metavar="NAME",
+                   help="audit a seeded-bug fixture from repro_torch.analysis.fixtures "
+                        "('all' runs every fixture; these are EXPECTED to flag)")
+    p.add_argument("--machine", default=None,
+                   help=f"machine for the perf lints (registry: "
+                        f"{', '.join(sorted(MACHINES))}; default: the entry's)")
+    p.add_argument("--mode", default="auto", choices=("auto", "enum", "structured"),
+                   help="correctness tier: enumerate small iteration spaces or "
+                        "force the symbolic/affine prover")
+    p.add_argument("--rules", default=None, metavar="PREFIXES",
+                   help="comma-separated rule prefixes to keep, e.g. 'race,bounds'")
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="machine-readable JSON reports (schema repro.lint/v1)")
+    p.add_argument("--fail-on", default="error", choices=("error", "warn", "never"),
+                   help="exit 1 when any finding at/above this severity (default error)")
+    return p
+
+
+def _lint_irs(args) -> list[tuple[str, object, object]]:
+    """Resolve the audit set: ``(label, ir, machine)`` triples."""
+    from ..frontend.pallas import trace_pallas
+
+    triples: list[tuple[str, object, object]] = []
+
+    def tpu_machine(entry):
+        return get_machine(
+            canonical_machine_name(args.machine) if args.machine
+            else ("TPUv5e" if entry.backend == "tpu" else entry.default_machine)
+        )
+
+    def add_entry(entry, config_filter=None):
+        mach = tpu_machine(entry)
+        if entry.backend == "gpu":
+            cfgs = [config_filter] if isinstance(config_filter, dict) \
+                else entry.space().configs()
+            for cfg in cfgs:
+                triples.append(
+                    (f"{entry.name} {_fmt_cfg(cfg)}", entry.build_ir(**cfg), mach)
+                )
+        else:
+            for c in entry.tpu_configs():
+                if isinstance(config_filter, str) and config_filter not in c.name:
+                    continue
+                triples.append((f"{entry.name} {c.name}", trace_pallas(c), mach))
+
+    if args.fixture:
+        from ..analysis.fixtures import FIXTURES
+
+        names = sorted(FIXTURES) if args.fixture == "all" else [args.fixture]
+        mach = get_machine(canonical_machine_name(args.machine or "V100"))
+        for name in names:
+            if name not in FIXTURES:
+                raise KeyError(
+                    f"unknown fixture {name!r} (have: {', '.join(sorted(FIXTURES))})"
+                )
+            triples.append((f"fixture:{name}", FIXTURES[name](), mach))
+        return triples
+    if args.lint_all:
+        for _, entry in sorted(KERNELS.items()):
+            add_entry(entry)
+        return triples
+    entry = get_kernel(args.kernel, backend=args.backend)
+    cfg_filter = None
+    if args.config is not None:
+        cfg_filter = (
+            json.loads(args.config) if entry.backend == "gpu" else args.config
+        )
+        if entry.backend == "gpu" and not isinstance(cfg_filter, dict):
+            raise ValueError("--config must be a JSON object on gpu entries")
+    add_entry(entry, cfg_filter)
+    return triples
+
+
+def _lint_main(argv: list[str]) -> int:
+    args = _lint_parser().parse_args(argv)
+    if not (args.kernel or args.lint_all or args.fixture):
+        return _fail("one of --kernel, --all, --fixture is required")
+    from .. import analysis
+
+    rules = tuple(r for r in (args.rules or "").split(",") if r) or None
+    try:
+        triples = _lint_irs(args)
+    except (ValueError, KeyError, TypeError) as e:
+        return _fail(e)
+    if not triples:
+        return _fail("nothing matched the audit selection")
+    reports = []
+    for label, ir, mach in triples:
+        rep = analysis.analyze_ir(ir, mach, rules=rules, mode=args.mode)
+        reports.append((label, rep))
+    worst = "info"
+    for _, rep in reports:
+        c = rep.counts
+        if c["error"]:
+            worst = "error"
+        elif c["warn"] and worst != "error":
+            worst = "warn"
+    if args.as_json:
+        print(json.dumps(
+            {
+                "schema": analysis.SCHEMA,
+                "worst": worst,
+                "reports": [
+                    dict(rep.to_json(), label=label) for label, rep in reports
+                ],
+            },
+            indent=2,
+        ))
+    else:
+        for label, rep in reports:
+            c = rep.counts
+            print(f"== {label} [{rep.granularity}]"
+                  + (f" on {rep.machine}" if rep.machine else "")
+                  + f": {c['error']} error(s), {c['warn']} warn(s), "
+                    f"{c['info']} info ==")
+            for f in rep.findings:
+                print("\n".join("  " + ln for ln in f.render().splitlines()))
+            print()
+        n_err = sum(rep.counts["error"] for _, rep in reports)
+        n_warn = sum(rep.counts["warn"] for _, rep in reports)
+        print(f"audited {len(reports)} IR(s): {n_err} error(s), {n_warn} warn(s)")
+    if args.fail_on != "never" and any(
+        not rep.ok(args.fail_on) for _, rep in reports
+    ):
+        return 1
     return 0
 
 

@@ -1,5 +1,5 @@
 """Kernel + machine registry for the exploration engine: a copy of
-``repro.explore.registry``, less its TPU backend.
+``repro.explore.registry``.
 
 Every explorable kernel is one *family* (``stencil25``, ``lbm_d3q15``,
 ``attention``, ``wkv``) with one :class:`KernelEntry` per estimation backend:
@@ -8,16 +8,16 @@ Every explorable kernel is one *family* (``stencil25``, ``lbm_d3q15``,
   (``build_ir: (**config) -> AccessIR``); the engine lowers the IR through
   :func:`repro_torch.frontend.lower.lower_gpu` into the paper §III pipeline and keys
   its store on the canonical IR fingerprint.
-* **tpu** — in the JAX package, a PallasConfig space factory traced for the
-  Pallas adaptation.  The port keeps the four ``*_tpu`` entries, so that
-  ``--list`` prints what the JAX CLI prints, but has no TPU backend: their
-  ``tpu_configs`` and ``get_estimator("tpu")`` raise ``NotImplementedError``
-  (``core/tpu_estimator`` and a counterpart of ``frontend/pallas``; ROADMAP
-  Queue 1 item 10).
+* **tpu** — the entry declares a PallasConfig space factory; the engine traces
+  each config to the same AccessIR (:func:`repro_torch.frontend.pallas.trace_pallas`)
+  for the Pallas adaptation (``core.tpu_estimator.estimate_ir``).
 
 :func:`get_kernel` resolves either an exact entry name or a family + backend
 (``get_kernel("attention", backend="tpu")`` -> the ``attention_tpu`` entry),
-which is what the CLI's ``--backend`` flag uses.
+which is what the CLI's ``--backend`` flag uses.  TPU spaces are built lazily
+(``kernels/<name>/ops.tpu_config_space``, the JAX package's Pallas tile
+spaces), so importing the registry (e.g. inside process-pool workers) does
+not pull in torch.
 """
 from __future__ import annotations
 
@@ -53,15 +53,12 @@ def _make_gpu_estimator(method: str = "sym", fits=None):
     return GPUAnalyticEstimator(method=method, fits=fits)
 
 
-NO_TPU = (
-    "the port has no TPU backend (core/tpu_estimator and a counterpart of "
-    "frontend/pallas; ROADMAP Queue 1 item 10)"
-)
+def _make_tpu_estimator(method: str = "tpu", fits=None):
+    # fits/method are GPU capacity-model concepts; the Pallas model has one
+    # deterministic method and a hard VMEM gate, so both are ignored here
+    from ..core.tpu_estimator import TPUPallasEstimator
 
-
-def _no_tpu(*args, **kwargs):
-    """The TPU estimator factory and the ``*_tpu`` entries' config spaces."""
-    raise NotImplementedError(NO_TPU)
+    return TPUPallasEstimator()
 
 
 # backend name -> Estimator factory (lazy imports keep pool workers light).
@@ -70,7 +67,7 @@ def _no_tpu(*args, **kwargs):
 # store schema and CLI need no changes.
 ESTIMATORS: dict[str, Callable] = {
     "gpu": _make_gpu_estimator,
-    "tpu": _no_tpu,
+    "tpu": _make_tpu_estimator,
 }
 
 
@@ -179,6 +176,30 @@ def wkv_gpu_space() -> SearchSpace:
     )
 
 
+def _tpu_stencil_configs():
+    from ..kernels.stencil25.ops import tpu_config_space
+
+    return tpu_config_space((256, 256, 512), r=4, dtype_bits=32)
+
+
+def _tpu_attention_configs():
+    from ..kernels.attention.ops import tpu_config_space
+
+    return tpu_config_space(4, 32, 8, 8192, 128, 16)
+
+
+def _tpu_wkv_configs():
+    from ..kernels.wkv.ops import tpu_config_space
+
+    return tpu_config_space(64, 4096, 64)
+
+
+def _tpu_lbm_configs():
+    from ..kernels.lbm_d3q15.ops import tpu_config_space
+
+    return tpu_config_space((128, 128, 128), dtype_bits=32)
+
+
 @dataclass(frozen=True)
 class KernelEntry:
     """One explorable (kernel family, backend) pair.
@@ -255,7 +276,7 @@ KERNELS: dict[str, KernelEntry] = {
         family="stencil25",
         backend="tpu",
         describe="stencil25 Pallas block-shape space on TPU v5e",
-        tpu_configs=_no_tpu,
+        tpu_configs=_tpu_stencil_configs,
         default_machine="TPUv5e",
     ),
     "lbm_d3q15_tpu": KernelEntry(
@@ -263,7 +284,7 @@ KERNELS: dict[str, KernelEntry] = {
         family="lbm_d3q15",
         backend="tpu",
         describe="LBM D3Q15 Pallas block space on TPU v5e",
-        tpu_configs=_no_tpu,
+        tpu_configs=_tpu_lbm_configs,
         default_machine="TPUv5e",
     ),
     "attention_tpu": KernelEntry(
@@ -271,7 +292,7 @@ KERNELS: dict[str, KernelEntry] = {
         family="attention",
         backend="tpu",
         describe="flash-attention Pallas (block_q, block_kv) space on TPU v5e",
-        tpu_configs=_no_tpu,
+        tpu_configs=_tpu_attention_configs,
         default_machine="TPUv5e",
     ),
     "wkv_tpu": KernelEntry(
@@ -279,7 +300,7 @@ KERNELS: dict[str, KernelEntry] = {
         family="wkv",
         backend="tpu",
         describe="chunked WKV Pallas chunk-length space on TPU v5e",
-        tpu_configs=_no_tpu,
+        tpu_configs=_tpu_wkv_configs,
         default_machine="TPUv5e",
     ),
 }

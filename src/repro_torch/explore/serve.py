@@ -1,7 +1,6 @@
 """Estimation-as-a-service: ``python -m repro_torch.explore serve``.
 
-Copy of ``repro.explore.serve``, less its TPU kernels (the port has no TPU
-backend; ROADMAP Queue 1 item 10): its records equal the JAX daemon's
+Copy of ``repro.explore.serve``: its records equal the JAX daemon's
 (``tests/test_torch_explore_serve.py``).
 
 The paper's pitch is that analytic estimation is fast enough to sit *inside*
@@ -36,8 +35,9 @@ Protocol (JSON over HTTP/1.1 keep-alive, loopback by default)::
                      "stats": {"alias_hits": n, "store_hits": n, "estimated": n}}
     POST /shutdown  -> {"ok": true}   (drains and stops the server)
 
-GPU registry kernels accept arbitrary config dicts for their ``build_ir``;
-a TPU kernel is refused with a 400.  Records are bit-identical to what a
+TPU kernels are served for their registry-generated config identities
+(``{"name": ..., **meta}``); GPU registry kernels accept arbitrary config
+dicts for their ``build_ir``.  Records are bit-identical to what a
 :class:`Study` writes — both sides build the same v4
 :func:`~repro_torch.explore.study.store_key` and the same
 :func:`~repro_torch.core.record.record_payload` schema, so daemon and sweeps can
@@ -62,7 +62,7 @@ from ..frontend import ir as _ir
 from ..frontend.ir import ir_fingerprint
 from ..obs import metrics as obs_metrics
 from ..store import AliasStore, alias_key, open_store
-from .registry import NO_TPU, canonical_machine_name, get_estimator, get_kernel, get_machine
+from .registry import canonical_machine_name, get_estimator, get_kernel, get_machine
 from .study import _BATCH_CHUNK, _fits_tag, _machine_tag, store_key
 
 # how long the batcher waits after the first pending miss before estimating:
@@ -121,6 +121,7 @@ class EstimationService:
         self._lock = threading.Lock()  # guards the context/alias tables
         self._ctx: dict[tuple, _MachineCtx] = {}
         self._alias: dict[tuple, AliasStore] = {}
+        self._tpu_raw: dict[str, dict] = {}  # kernel -> cfg-key -> PallasConfig
         self._batcher = _Batcher(self)
 
     # ---- warm-state resolution ------------------------------------------- #
@@ -140,7 +141,7 @@ class EstimationService:
             ctx = self._ctx.get(k)
             if ctx is None:
                 machine = get_machine(machine_key)
-                fits_tag = _fits_tag(machine.fits)
+                fits_tag = _fits_tag(machine.fits) if entry.backend == "gpu" else None
                 stem = f"{entry.name}__{machine_key}__{method}"
                 if self.store_backend == "sharded":
                     path = self.root / stem
@@ -169,6 +170,28 @@ class EstimationService:
                 self._ctx[k] = ctx
             return ctx
 
+    def _tpu_config(self, entry, config: dict):
+        """Resolve a TPU config identity dict back to its registry
+        PallasConfig (the raw object a cold trace needs)."""
+        from ..core.record import retuple
+
+        table = self._tpu_raw.get(entry.name)
+        if table is None:
+            table = {}
+            for cfg in entry.tpu_configs():
+                ident = retuple({"name": cfg.name, **cfg.meta})
+                table[json.dumps(ident, sort_keys=True, default=list)] = (ident, cfg)
+            self._tpu_raw[entry.name] = table
+        want = json.dumps(retuple(dict(config)), sort_keys=True, default=list)
+        hit = table.get(want)
+        if hit is None:
+            raise ServeError(
+                f"config {config!r} is not a registry-generated identity of "
+                f"TPU kernel {entry.name!r} (the daemon can only re-trace "
+                "configs it can reconstruct)"
+            )
+        return hit
+
     # ---- the query path --------------------------------------------------- #
 
     def estimate(
@@ -184,9 +207,9 @@ class EstimationService:
             entry = get_kernel(kernel, backend=backend)
         except KeyError as e:
             raise ServeError(str(e.args[0]) if e.args else repr(e)) from None
+        method = method or ("sym" if entry.backend == "gpu" else "tpu")
         if entry.backend == "tpu":
-            raise ServeError(f"kernel {entry.name!r}: {NO_TPU}")
-        method = method or "sym"
+            method = "tpu"
         try:
             machine_key = canonical_machine_name(machine or entry.default_machine)
         except KeyError as e:
@@ -200,7 +223,10 @@ class EstimationService:
         for i, config in enumerate(configs):
             if not isinstance(config, dict):
                 raise ServeError(f"configs[{i}] is not a config dict: {config!r}")
-            ident, raw = dict(config), dict(config)
+            if entry.backend == "tpu":
+                ident, raw = self._tpu_config(entry, config)
+            else:
+                ident, raw = dict(config), dict(config)
             fp = alias.get(alias_key(entry.name, entry.backend, ident))
             key = None
             if fp is not None:
@@ -255,7 +281,12 @@ class EstimationService:
         for start in range(0, len(misses), _BATCH_CHUNK):
             chunk = misses[start : start + _BATCH_CHUNK]
             try:
-                irs = [entry.build_ir(**m.raw) for m in chunk]
+                if backend == "tpu":
+                    from ..frontend.pallas import trace_pallas
+
+                    irs = [trace_pallas(m.raw) for m in chunk]
+                else:
+                    irs = [entry.build_ir(**m.raw) for m in chunk]
                 fps = [ir_fingerprint(ir) for ir in irs]
                 recs = ctx.estimator.estimate_batch(
                     irs,

@@ -1,11 +1,10 @@
 """One exploration API: a backend-agnostic :class:`Study` over the unified
 :class:`~repro_torch.core.record.Estimator` protocol.
 
-Copy of ``repro.explore.study``; the records, their order and the store
-keys equal the JAX package's (``tests/test_torch_explore.py``).  The port
-has no TPU backend: a TPU kernel or machine raises ``NotImplementedError``
-at construction (ROADMAP Queue 1 item 10).  ``explain()`` and the ``lint=``
-gate wait for ``obs/explain`` and ``analysis`` (item 9) and raise so too.
+Copy of ``repro.explore.study``; the records, their order, the store keys,
+the lint gate's reports and ``explain()``'s reports equal the JAX package's
+(``tests/test_torch_explore.py``, ``test_torch_analysis.py``,
+``test_torch_explain.py``).
 
 The paper's core capability (§IV–V) is *ranking a configuration space without
 running it*; this module is the single user-facing entry point to that
@@ -21,8 +20,9 @@ persistent store — and every downstream surface (``.top()``, ``.pareto()``,
   store key, the sort tie-break and the cross-machine config identity;
 * estimation goes through the backend's :class:`Estimator`
   (``estimate_batch(irs, machine) -> list[EstimateRecord]``), resolved from
-  :data:`repro_torch.explore.registry.ESTIMATORS` (the port has the GPU §III
-  analytic pipeline);
+  :data:`repro_torch.explore.registry.ESTIMATORS` — the GPU §III analytic pipeline
+  and the TPU/Pallas adaptation are peers behind the same protocol, so the
+  old per-backend engine fork (``_sweep_tpu``) is gone;
 * a multi-machine :meth:`Study.run` shares one
   :class:`~repro_torch.core.estimator.EstimateCache` across all machines, so the
   machine-independent work (access grouping, block footprints, bank-conflict
@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
 from concurrent.futures import ProcessPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -49,12 +50,13 @@ from typing import Callable, Sequence
 
 from ..core.capacity import CapacityFits
 from ..core.estimator import EstimateCache
-from ..core.machine import GPUMachine, canonical_machine_name
+from ..core.machine import GPUMachine, TPUMachine, canonical_machine_name
 from ..core.ranking import RankedConfig, kendall_tau
-from ..core.record import EstimateRecord, record_from_payload, record_payload
+from ..core.record import EstimateRecord, record_from_payload, record_payload, retuple
 from ..frontend import ir as _ir
 from ..frontend.ir import ir_fingerprint
 from ..frontend.lower import from_kernel_spec, lower_gpu
+from ..frontend.pallas import trace_pallas
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from ..store import (
@@ -67,7 +69,7 @@ from ..store import (
 )
 from . import pareto as pareto_mod
 from .prune import PruneReport, prune_configs
-from .registry import NO_TPU, KernelEntry, get_estimator, get_kernel, get_machine
+from .registry import KernelEntry, get_estimator, get_kernel, get_machine
 from .space import FilterReport, SearchSpace, subsample
 
 # v2: cache keys fingerprint the FULL machine constants
@@ -337,9 +339,9 @@ def _resolve(
     return (f"{mod}.{qual}" if mod else qual), None, kernel, None
 
 
-def resolve_machines(machines: Sequence) -> list[tuple[str, GPUMachine]]:
+def resolve_machines(machines: Sequence) -> list[tuple[str, GPUMachine | TPUMachine]]:
     """Machine names/instances -> [(canonical label, machine instance)]."""
-    out: list[tuple[str, GPUMachine]] = []
+    out: list[tuple[str, GPUMachine | TPUMachine]] = []
     for m in machines:
         if isinstance(m, str):
             out.append((canonical_machine_name(m), get_machine(m)))
@@ -365,7 +367,7 @@ class _Candidate:
     fully-warm aliased sweep finishes with every ``ir`` still None."""
 
     config: dict  # identity dict stamped on records / store payloads
-    raw: object  # original config dict for builders & workers
+    raw: object  # original config (dict / PallasConfig) for builders & workers
     ir: object | None = None  # canonical AccessIR, traced lazily
     fp: str | None = None  # ir_fingerprint(ir), or the alias store's answer
     spec: object | None = None  # GPU KernelSpec, built lazily on demand
@@ -516,10 +518,11 @@ class Study:
     """A declarative exploration: kernel × space × machines × backend × store.
 
     ``kernel`` is a registry name (``repro_torch.explore.registry.KERNELS``), a
-    family name plus ``backend=``, or a custom GPU spec builder callable
-    ``(**config) -> KernelSpec``.  Candidates come from ``configs`` (dicts),
-    an explicit ``space``, or the kernel's registered search space.
-    ``machines`` spans several architectures in one study; the
+    family name plus ``backend=`` (``Study("attention", backend="tpu")``), or
+    a custom GPU spec builder callable ``(**config) -> KernelSpec``.
+    Candidates come from ``configs`` (dicts on the GPU path, PallasConfigs on
+    the TPU path), an explicit ``space``, or the kernel's registered search
+    space.  ``machines`` spans several architectures in one study; the
     machine-independent per-config work (IR tracing, access grouping, block
     footprints, bank-conflict cycles) is computed **once** and shared through
     one :class:`~repro_torch.core.estimator.EstimateCache` (exposed as ``.cache``),
@@ -568,11 +571,14 @@ class Study:
     ):
         self.name, self.entry, self._build, self._build_ir = _resolve(kernel, backend)
         self.backend = self.entry.backend if self.entry is not None else "gpu"
-        if self.backend == "tpu":
-            raise NotImplementedError(f"kernel {self.name!r}: {NO_TPU}")
-        if self._build is None:
+        if self.backend == "tpu" and (prune or sample is not None):
+            raise ValueError(
+                "prune/sample are not supported for TPU-backend kernels; "
+                "pass an explicit PallasConfig list via configs= instead"
+            )
+        if self.backend == "gpu" and self._build is None:
             raise ValueError(f"kernel {self.name!r} has no GPU builder")
-        self.method = method
+        self.method = method if self.backend == "gpu" else "tpu"
         self.space = space
         self.configs = configs
         self.fits = fits
@@ -596,10 +602,15 @@ class Study:
         if len(set(labels)) != len(labels):
             raise ValueError(f"duplicate machines in {labels}")
         for label, m in self._machines:
-            if not isinstance(m, GPUMachine):
+            if self.backend == "gpu" and not isinstance(m, GPUMachine):
                 raise ValueError(
                     f"kernel {self.name!r} uses the GPU (paper §III) estimator, "
                     f"which needs a GPUMachine; got {m.name!r}"
+                )
+            if self.backend == "tpu" and not isinstance(m, TPUMachine):
+                raise ValueError(
+                    f"kernel {self.name!r} uses the TPU (Pallas) estimator, "
+                    f"which needs a TPUMachine; got {m.name!r}"
                 )
 
         if store is not None and stores is not None:
@@ -631,17 +642,20 @@ class Study:
 
         # the config→fingerprint alias layer only applies where the IR is a
         # deterministic function of the config identity: registry kernels
-        # (GPU build_ir).  Custom builder callables under-determine the IR
+        # (GPU build_ir / registry-generated tpu_configs).  Custom builder
+        # callables and user-passed PallasConfig lists under-determine the IR
         # from the config dict, so an alias there could serve a wrong
         # fingerprint — refuse instead of silently mis-keying.
-        self._alias_eligible = self.entry is not None
+        self._alias_eligible = self.entry is not None and (
+            self.backend == "gpu" or self.configs is None
+        )
         self.alias: AliasStore | None = None
         if alias:
             if not self._alias_eligible:
                 raise ValueError(
                     "alias= needs a registry kernel whose IR is reconstructible "
-                    "from the config identity; custom builder callables don't "
-                    "qualify"
+                    "from the config identity; custom builder callables and "
+                    "user-passed PallasConfig lists don't qualify"
                 )
             if isinstance(alias, AliasStore):
                 self.alias = alias
@@ -657,17 +671,15 @@ class Study:
             else:
                 self.alias = AliasStore(alias)
 
-        # static-analysis gate: "error", "warn" and "annotate" need the port
-        # of repro.analysis; None/"off" skip it, as in the JAX package
+        # static-analysis gate (repro_torch.analysis): "error"/"warn" fail fast with
+        # LintError before any estimate is computed, "annotate" only collects
+        # reports (self.lint_reports, explain() lint section), None/"off" skip
         if lint not in (None, "off", "error", "warn", "annotate"):
             raise ValueError(
                 f"lint={lint!r}: pass None, 'off', 'error', 'warn' or 'annotate'"
             )
-        if lint not in (None, "off"):
-            raise NotImplementedError(
-                f"Study(lint={lint!r}) needs the static analysis (repro.analysis), "
-                "which the port has not copied yet (ROADMAP Queue 1 item 9)"
-            )
+        self.lint: str | None = None if lint == "off" else lint
+        self.lint_reports: dict = {}  # fingerprint -> analysis.Report
 
         self._estimator = get_estimator(self.backend, method=self.method, fits=fits)
         self._cands: list[_Candidate] | None = None
@@ -694,6 +706,11 @@ class Study:
         exhaustive run's and either path warms the other.
         """
         if search is not None:
+            if self.backend != "gpu":
+                raise ValueError(
+                    "search= rides on the GPU analytic estimator's cheap "
+                    "models; TPU studies enumerate explicit config lists"
+                )
             from .search.driver import run_search
 
             self._last_search = search
@@ -780,14 +797,132 @@ class Study:
         )
 
     def explain(self, config="best", machine: str | None = None):
-        """Provenance report for one configuration: waits for the port of
-        ``obs/explain`` (ROADMAP Queue 1 item 9)."""
-        raise NotImplementedError(
-            "Study.explain needs repro.obs.explain, which the port has not "
-            "copied yet (ROADMAP Queue 1 item 9)"
+        """Provenance report for one configuration: why it scored what it did.
+
+        ``config`` selects the target:
+
+        * ``"best"`` (default) — each machine's top feasible record;
+        * an integer (or digit string) — rank index into the sorted records;
+        * a config dict or its JSON spelling — matched by canonical config
+          key; configs that were *pruned* (so never estimated in the sweep)
+          are estimated on demand from their already-traced IR, which is what
+          makes "why was this one pruned?" answerable.
+
+        Returns an :class:`~repro_torch.obs.explain.ExplainReport` for a
+        single-machine study (or when ``machine=`` narrows it), and a
+        :class:`~repro_torch.obs.explain.CrossMachineExplain` side-by-side across
+        all machines otherwise.  Note ``"best"`` can legitimately pick a
+        *different* config per machine in the cross-machine view — that shift
+        is exactly what the divergence section surfaces.
+        """
+        st = self._ensure()
+        targets = self._machines
+        if machine is not None:
+            want = st.result(machine).machine  # canonicalize + validate
+            targets = [(lb, m) for lb, m in self._machines if m.name == want]
+        reports = {
+            label: self._explain_one(st.results[label], mobj, config)
+            for label, mobj in targets
+        }
+        if len(reports) == 1:
+            return next(iter(reports.values()))
+        from ..obs import explain as explain_mod  # deferred: explain sits above explore
+
+        labels = [label for label, _ in targets]
+        return explain_mod.cross_machine(
+            self.name,
+            self.backend,
+            reports[labels[0]].config,
+            labels,
+            reports,
         )
 
     # ---- internals -------------------------------------------------------- #
+
+    def _explain_one(self, res: SweepResult, machine, config):
+        from ..obs import explain as explain_mod  # deferred: explain sits above explore
+
+        rec = self._explain_record(res, machine, config)
+        cand = next(
+            (
+                c
+                for c in self._candidates()
+                if c.fp == rec.fingerprint
+                or _cfg_key(retuple(c.config)) == _cfg_key(retuple(rec.config))
+            ),
+            None,
+        )
+        if self.backend == "tpu":
+            if cand is None:
+                raise KeyError(
+                    f"config {rec.config!r} has no traced candidate in this study"
+                )
+            if cand.ir is None:
+                self._trace([cand])
+            report = explain_mod.explain_tpu_record(rec, cand.ir, machine)
+        else:
+            fits = self.fits if self.fits is not None else machine.fits
+            report = explain_mod.explain_gpu_record(
+                rec,
+                machine,
+                fits=fits,
+                spec=self._spec(cand) if cand is not None else None,
+                prune_report=res.prune_report,
+            )
+        if self.lint is not None:
+            report.lint = self.lint_reports.get(rec.fingerprint)
+        return report
+
+    def _explain_record(self, res: SweepResult, machine, config) -> SweepRecord:
+        """Resolve an ``explain()`` target to a record, estimating on demand
+        for configs the sweep pruned away."""
+        if config is None or config == "best":
+            best = next(iter(res._feasible()), None)
+            if best is None:
+                raise ValueError(
+                    f"no feasible records on {res.machine}; nothing to explain"
+                )
+            return best
+        if isinstance(config, int) or (
+            isinstance(config, str) and config.lstrip("+-").isdigit()
+        ):
+            rank = int(config)
+            if not 0 <= rank < len(res.records):
+                raise IndexError(
+                    f"rank {rank} out of range: {res.machine} has "
+                    f"{len(res.records)} records"
+                )
+            return res.records[rank]
+        if isinstance(config, str):
+            try:
+                config = json.loads(config)
+            except json.JSONDecodeError as e:
+                raise ValueError(
+                    f"--explain target {config!r} is neither 'best', a rank, "
+                    f"nor valid config JSON ({e})"
+                ) from None
+        if not isinstance(config, dict):
+            raise TypeError(f"cannot resolve explain target {config!r}")
+        want = _cfg_key(retuple(dict(config)))
+        for r in res.records:
+            if _cfg_key(retuple(r.config)) == want:
+                return r
+        # not in the sweep's records: pruned (or never enumerated).  The IR
+        # was still traced during candidate enumeration, so estimate it now.
+        for cand in self._candidates():
+            if _cfg_key(retuple(cand.config)) == want:
+                if cand.ir is None:
+                    self._trace([cand])
+                kwargs = {"configs": [cand.config], "cache": self.cache}
+                if self.backend == "gpu":
+                    kwargs["specs"] = [self._spec(cand)]
+                rec = self._estimator.estimate_batch([cand.ir], machine, **kwargs)[0]
+                rec.fingerprint = cand.fp
+                return _as_sweep_record(rec)
+        raise KeyError(
+            f"config {config!r} is not a candidate of this study "
+            f"(kernel {self.name!r}, {len(self._candidates())} candidates)"
+        )
 
     def _ensure(self) -> StudyResult:
         return self._result if self._result is not None else self.run()
@@ -800,31 +935,76 @@ class Study:
         hits stay un-traced until a store miss actually needs their IR."""
         if self._cands is not None:
             return self._cands
-        with obs_trace.span("study.enumerate", kernel=self.name) as esp:
-            if self.configs is None:
-                space = self.space
-                if space is None:
-                    if self.entry is None or self.entry.space is None:
-                        raise ValueError(
-                            f"no search space registered for kernel {self.name!r}"
-                        )
-                    space = self.entry.space()
-                self._space_report = FilterReport()
-                raw = space.configs(self._space_report)
-            else:
-                raw = self.configs
-            raw = [dict(c) for c in raw]
-            if self.sample is not None:
-                raw = subsample(raw, self.sample, self.seed)
-            esp.set(configs=len(raw))
-        cands = [_Candidate(config=dict(cfg), raw=cfg) for cfg in raw]
+        cands: list[_Candidate] = []
+        if self.backend == "tpu":
+            with obs_trace.span("study.enumerate", kernel=self.name) as esp:
+                raw = (
+                    list(self.configs)
+                    if self.configs is not None
+                    else self.entry.tpu_configs()
+                )
+                esp.set(configs=len(raw))
+            for cfg in raw:
+                cands.append(
+                    _Candidate(
+                        config=retuple({"name": cfg.name, **cfg.meta}), raw=cfg
+                    )
+                )
+        else:
+            with obs_trace.span("study.enumerate", kernel=self.name) as esp:
+                if self.configs is None:
+                    space = self.space
+                    if space is None:
+                        if self.entry is None or self.entry.space is None:
+                            raise ValueError(
+                                f"no search space registered for kernel {self.name!r}"
+                            )
+                        space = self.entry.space()
+                    self._space_report = FilterReport()
+                    raw = space.configs(self._space_report)
+                else:
+                    raw = self.configs
+                raw = [dict(c) for c in raw]
+                if self.sample is not None:
+                    raw = subsample(raw, self.sample, self.seed)
+                esp.set(configs=len(raw))
+            cands.extend(_Candidate(config=dict(cfg), raw=cfg) for cfg in raw)
         if self.alias is not None:
             for c in cands:
                 c.fp = self.alias.get(alias_key(self.name, self.backend, c.config))
         self._trace([c for c in cands if c.fp is None])
+        if self.lint is not None:
+            # linting reads the IR, so alias-warm candidates must trace too
+            self._trace([c for c in cands if c.ir is None])
+            self._lint_gate(cands)
         obs_metrics.counter("study.candidates").inc(len(cands))
         self._cands = cands
         return cands
+
+    def _lint_gate(self, cands: list) -> None:
+        """Run the static analyzer over every candidate IR (once per unique
+        fingerprint) BEFORE estimation: a ranking over configs that race or
+        read out of bounds is worse than no ranking.  ``lint="error"`` /
+        ``"warn"`` raise :class:`repro_torch.analysis.LintError` at the first
+        candidate with findings at that severity; ``"annotate"`` only records
+        the reports (``self.lint_reports``, the ``explain()`` lint section)."""
+        from .. import analysis
+
+        machine = self._machines[0][1]
+        with obs_trace.span("study.lint", kernel=self.name, configs=len(cands)):
+            for c in cands:
+                if c.fp not in self.lint_reports:
+                    spec = self._spec(c) if self.backend == "gpu" else None
+                    self.lint_reports[c.fp] = analysis.analyze_ir(
+                        c.ir, machine, estimate_cache=self.cache, spec=spec,
+                        fingerprint=c.fp,
+                    )
+                if self.lint in ("error", "warn"):
+                    rep = self.lint_reports[c.fp]
+                    if not rep.ok(self.lint):
+                        raise analysis.LintError(
+                            rep, self.lint, context=f"config {c.config}"
+                        )
 
     def _trace(self, todo: list[_Candidate]) -> None:
         """Trace the IR (and fingerprint) of exactly these candidates.
@@ -836,7 +1016,11 @@ class Study:
             return
         with obs_trace.span("study.trace_ir", kernel=self.name, configs=len(todo)):
             for c in todo:
-                if self._build_ir is not None:
+                if self.backend == "tpu":
+                    # non-affine index_map closures raise NonAffineIndexMapError
+                    # here instead of silently aliasing a probe-compatible map
+                    c.ir = trace_pallas(c.raw)
+                elif self._build_ir is not None:
                     c.ir = self._build_ir(**c.raw)
                 else:
                     # custom callable: recover the canonical IR from the built
@@ -894,8 +1078,12 @@ class Study:
                     kept = prune_report.kept_indices or []
                     psp.set(kept=len(kept), dropped=prune_report.dropped)
 
-            fits = self.fits if self.fits is not None else machine.fits
-            fits_tag = _fits_tag(fits)
+            fits_tag = None
+            if self.backend == "gpu":
+                fits = self.fits if self.fits is not None else machine.fits
+                fits_tag = _fits_tag(fits)
+            else:
+                fits = None
             machine_tag = _machine_tag(machine)
 
             records: list[SweepRecord | None] = [None] * len(kept)
@@ -935,6 +1123,7 @@ class Study:
 
             use_pool = (
                 self.workers > 0
+                and self.backend == "gpu"
                 and self.entry is not None
                 and len(misses) > 1
             )
@@ -982,14 +1171,19 @@ class Study:
                     chunk = misses[start : start + _BATCH_CHUNK]
                     irs = [cands[ci].ir for _, ci, _ in chunk]
                     cfgs = [cands[ci].config for _, ci, _ in chunk]
-                    recs = self._estimator.estimate_batch(
-                        irs,
-                        machine,
-                        configs=cfgs,
-                        cache=self.cache,
-                        # lowered once per config, shared by every machine
-                        specs=[self._spec(cands[ci]) for _, ci, _ in chunk],
-                    )
+                    if self.backend == "gpu":
+                        recs = self._estimator.estimate_batch(
+                            irs,
+                            machine,
+                            configs=cfgs,
+                            cache=self.cache,
+                            # lowered once per config, shared by every machine
+                            specs=[self._spec(cands[ci]) for _, ci, _ in chunk],
+                        )
+                    else:
+                        recs = self._estimator.estimate_batch(
+                            irs, machine, configs=cfgs, cache=self.cache
+                        )
                     for (j, ci, key), rec in zip(chunk, recs):
                         commit(j, key, rec, cands[ci].fp)
 

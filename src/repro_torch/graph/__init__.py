@@ -1,9 +1,9 @@
 """Whole-model estimation: kernel DAGs, discrete-event replay, step-time reports.
 
-The port's copy of ``repro.graph`` (GPU backend); its predictions equal the
-JAX package's with ``==`` (``tests/test_torch_graph.py``).  The per-kernel
-estimator (`core/estimator.py`) answers "how long does THIS kernel take";
-this package answers "how long does the whole step take" by tracing a model
+The port's copy of ``repro.graph``; its predictions equal the JAX package's
+with ``==`` (``tests/test_torch_graph.py``, ``test_torch_tpu_estimator.py``).
+The per-kernel estimators (`core/estimator.py`, `core/tpu_estimator.py`)
+answer "how long does THIS kernel take"; this package answers "how long does the whole step take" by tracing a model
 into a :class:`KernelDAG` of AccessIR nodes plus sharding-implied
 collectives (:func:`trace_step`), pricing every unique kernel once through
 the shared estimator protocol (:func:`estimate_dag`), and replaying the DAG

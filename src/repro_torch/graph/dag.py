@@ -115,12 +115,28 @@ class KernelDAG:
     def lint(
         self, machine=None, threshold: str | None = None, estimate_cache=None
     ) -> dict:
-        """Static analysis of every unique compute-node IR: the JAX package's
-        ``repro.analysis`` has no counterpart in the port yet."""
-        raise NotImplementedError(
-            "KernelDAG.lint needs the static analysis (repro.analysis), which "
-            "the port has not copied yet (ROADMAP Queue 1 item 9)"
-        )
+        """Static analysis (:func:`repro_torch.analysis.analyze_ir`) over every
+        unique compute-node IR: ``node_id -> Report`` for the first node
+        carrying each fingerprint.  ``machine`` (name or instance) enables the
+        machine-dependent perf lints; ``threshold`` ("error"/"warn") raises
+        :class:`repro_torch.analysis.LintError` at the first report failing it —
+        the DAG-level analogue of ``Study(lint=...)``.  ``estimate_cache``
+        shares perf-lint sub-results with the estimation that follows."""
+        from .. import analysis
+
+        by_fp: dict[str, str] = {}
+        for n in self.compute_nodes:
+            if n.ir is not None:
+                by_fp.setdefault(n.fingerprint, n.id)
+        reports: dict[str, object] = {}
+        for fp, nid in by_fp.items():
+            rep = analysis.analyze_ir(
+                self.nodes[nid].ir, machine, estimate_cache=estimate_cache
+            )
+            reports[nid] = rep
+            if threshold is not None and not rep.ok(threshold):
+                raise analysis.LintError(rep, threshold, context=f"node {nid}")
+        return reports
 
     def validate(self) -> None:
         """Check the closed graph: known deps, known axes, no cycles."""

@@ -1,5 +1,5 @@
 """Trace one model step into a :class:`~repro_torch.graph.dag.KernelDAG`:
-a copy of ``repro.graph.frontend`` (GPU backend).
+a copy of ``repro.graph.frontend``.
 
 The tracer walks a model's config shapes — never its model code — and emits
 the SPMD kernel stream of one step: per-layer matmuls, elementwise streams and
@@ -76,6 +76,7 @@ class _Tracer:
     ):
         self.cfg = cfg
         self.mesh = mesh
+        self.backend = backend
         self.kind = kind
         self.sizes = dict(mesh.axes)
         self.rules = rules_for_spec(mesh)
@@ -124,14 +125,14 @@ class _Tracer:
 
     def mm(self, name: str, m: int, n: int, k: int, *, w_count: int | None = None):
         """Matmul node; its weight (k x n, tp-local) joins the layer gather."""
-        ir, rep = matmul_ir(m, n, k)
+        ir, rep = matmul_ir(m, n, k, backend=self.backend)
         self._emit(name, ir, rep, op="matmul", dims=(m, n, k))
         self._layer_w += k * n if w_count is None else w_count
         self._ops.append(("mm", name, m, n, k))
 
     def ew(self, name: str, nelem: int, *, reads=1, writes=1, flops=4.0):
         ir, rep = elementwise_ir(
-            nelem, reads=reads, writes=writes,
+            nelem, backend=self.backend, reads=reads, writes=writes,
             flops_per_elem=flops,
         )
         self._emit(name, ir, rep, op="elementwise")
@@ -209,6 +210,7 @@ class _Tracer:
         self.mm(f"L{li}.lora_b", m, d // tpn, 64)
         ir, rep = wkv_mixer_ir(
             BH=self.b_loc * h_loc, S=self.seq, K=cfg.rwkv_head_dim,
+            backend=self.backend,
         )
         self.mixer(f"L{li}.wkv", ir, rep)
         self.mm(f"L{li}.wo", m, d, d // tpn)
@@ -234,6 +236,7 @@ class _Tracer:
         self.mm(f"{tag}.wv", m, kv_loc * hd, d)
         ir, rep = attention_mixer_ir(
             batch=self.b_loc, heads=h_loc, S=self.seq, hd=hd,
+            backend=self.backend,
         )
         self.mixer(f"{tag}.attn", ir, rep)
         self.mm(f"{tag}.wo", m, d, h_loc * hd)
@@ -296,7 +299,7 @@ class _Tracer:
         self.ew(f"{tag}.norm", m * d)
         self.mm(f"{tag}.in_proj", m, zdim // tpz, d)
         self.ew(f"{tag}.conv", m * conv_ch, reads=2, writes=1, flops=8.0)
-        ir, rep = scan_mixer_ir(nelem=m * d_in_loc, state=N)
+        ir, rep = scan_mixer_ir(nelem=m * d_in_loc, state=N, backend=self.backend)
         self.mixer(f"{tag}.scan", ir, rep)
         self.ew(f"{tag}.gate", m * d_in_loc, reads=2, writes=1, flops=4.0)
         self.mm(f"{tag}.out_proj", m, d, d_in_loc)
@@ -400,19 +403,13 @@ def trace_step(
 
     ``model`` is an :class:`ArchConfig`, an arch id string, or anything with a
     ``.cfg`` (the port's ``LM``).  ``mesh`` takes every spelling
-    :func:`~repro_torch.launch.mesh.mesh_spec` accepts.  ``backend="tpu"``
-    raises: the TPU branches wait for ROADMAP Queue 1 item 10.
+    :func:`~repro_torch.launch.mesh.mesh_spec` accepts.
     """
     cfg = _resolve_cfg(model)
     if kind not in STEP_KINDS:
         raise ValueError(f"kind {kind!r} not in {STEP_KINDS}")
     if backend not in ("gpu", "tpu"):
         raise ValueError(f"backend {backend!r} not in ('gpu', 'tpu')")
-    if backend == "tpu":
-        raise NotImplementedError(
-            "trace_step(backend='tpu'): the port's graph has no TPU backend "
-            "(ROADMAP Queue 1 item 10)"
-        )
     spec = mesh_spec(mesh)
     return _Tracer(cfg, spec, batch=batch, seq=seq, backend=backend, kind=kind).run()
 

@@ -6,16 +6,15 @@ Copy of ``repro.graph.study``; the same numbers come out, `==`
 ``estimate_dag`` is the bridge between the graph and the per-kernel world: it
 dedups the DAG's compute nodes by canonical IR fingerprint, estimates each
 unique kernel ONCE through the same backend-agnostic
-:class:`~repro_torch.core.record.Estimator` protocol (one shared
-:class:`~repro_torch.core.estimator.EstimateCache`), prices collectives with
-the ring model over the mesh link bandwidth, and hands the durations to the
-discrete-event :class:`~repro_torch.graph.replay.Replayer`.
+:class:`~repro_torch.core.record.Estimator` protocol the :class:`Study` facade uses
+(one shared :class:`~repro_torch.core.estimator.EstimateCache`), prices collectives
+with the ring model over the mesh link bandwidth, and hands the durations to
+the discrete-event :class:`~repro_torch.graph.replay.Replayer`.
 
-``step_time`` is the one-call entry point: model x machine x mesh ->
-:class:`StepTimeReport` with the predicted step time, critical path,
-per-device utilization, overlap fraction, slack table and limiter
-attribution.  ``repro_torch.explore.Study.step_time`` is the same call; its
-``lint=`` audit waits for ``analysis`` (ROADMAP Queue 1 item 9).
+``step_time`` is the one-call entry point (also exposed as
+``Study.step_time``): model x machine x mesh -> :class:`StepTimeReport` with
+the predicted step time, critical path, per-device utilization, overlap
+fraction, slack table and limiter attribution.
 """
 from __future__ import annotations
 
@@ -50,7 +49,7 @@ def estimate_dag(
     Returns ``(durations, unique)``: ``durations`` maps node id -> full
     instance seconds (per-kernel estimate x ``repeat`` for compute, ring-model
     seconds for collectives); ``unique`` maps IR fingerprint -> the one
-    :class:`~repro.core.record.EstimateRecord` backing every node that shares
+    :class:`~repro_torch.core.record.EstimateRecord` backing every node that shares
     it.  Each unique fingerprint is estimated exactly once
     (``graph.estimated`` counts estimator calls; ``graph.nodes`` the nodes
     they fan out to).
@@ -103,7 +102,7 @@ class StepTimeReport:
     durations: dict[str, float]
     unique: dict[str, object]  # fingerprint -> EstimateRecord
     meta: dict = field(default_factory=dict)
-    lint_reports: dict = field(default_factory=dict)  # empty: lint is not ported
+    lint_reports: dict = field(default_factory=dict)  # node_id -> analysis.Report
 
     @property
     def step_time_s(self) -> float:
@@ -257,17 +256,13 @@ def step_time(
     ``machine`` is a machine instance or registry name; the backend (and so
     the IR dialect the tracer emits) follows its family.  Pass ``dag=`` to
     re-price an already-traced DAG (the trace is machine-independent given a
-    backend).  ``lint`` other than ``None`` or ``"off"`` raises: the static
-    audit waits for the port of ``analysis`` (ROADMAP Queue 1 item 9).
+    backend).  ``lint="error"``/``"warn"`` statically audits every unique
+    node IR and raises :class:`repro_torch.analysis.LintError` before estimation;
+    ``lint="annotate"`` collects the per-node reports into
+    ``report.lint_reports`` without gating.
     """
     from ..explore.study import resolve_machines
 
-    if lint not in (None, "off"):
-        raise NotImplementedError(
-            f"step_time(lint={lint!r}) needs the static analysis "
-            "(repro.analysis), which the port has not copied yet "
-            "(ROADMAP Queue 1 item 9)"
-        )
     _, mach = resolve_machines([machine])[0]
     backend = backend_for(mach)
     if dag is None:
@@ -276,6 +271,11 @@ def step_time(
     if cache is None:
         cache = EstimateCache()
     lint_reports: dict = {}
+    if lint not in (None, "off"):
+        lint_reports = dag.lint(
+            mach, threshold=lint if lint in ("error", "warn") else None,
+            estimate_cache=cache,
+        )
     durations, unique = estimate_dag(
         dag, mach, method=method, fits=fits, cache=cache
     )

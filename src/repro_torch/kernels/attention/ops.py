@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core import tpu_estimator as te
 from .kernel import compiled, flash_attention_cuda
 from .ref import mha_plain
 
@@ -72,4 +73,88 @@ def flash_attention(
     return flash_attention_cuda(q, k, v, causal=causal, block_q=block_q, block_kv=block_kv)
 
 
-__all__ = ["config_space", "flash_attention", "mha_plain", "select_blocks"]
+# The JAX package's Pallas tiles, for the TPU backend's host-side ranking.
+TPU_CANDIDATE_BLOCKS = (128, 256, 512, 1024)
+
+
+def tpu_config_space(
+    b: int, hq: int, hkv: int, s: int, d: int, dtype_bits: int, causal: bool = True
+):
+    """Candidate (block_q, block_kv) configs.
+
+    Copy of ``repro.kernels.attention.ops.config_space`` (the Pallas tile
+    space that :mod:`repro_torch.core.tpu_estimator` ranks on the host;
+    the port launches no Pallas kernel).
+
+    The kv refetch across the q-block loop is the V_red analogue: k/v blocks are
+    refetched for every q block of the same head.  Larger kv blocks reduce grid
+    overhead but raise VMEM; the estimator trades these off analytically.
+
+    The grid splits the batch*head loop into (batch, kv_head, group) dims so
+    every ``index_map`` is *affine* in the grid coordinates — the fused-``bh``
+    form indexed kv heads through an integer division, which the AccessIR
+    tracer rightly rejects (and which the old probe-based store keys silently
+    mis-fingerprinted).  The enumeration order, and therefore the Pallas
+    revisit/fetch schedule, is unchanged: ``bh == batch*hq + kv_head*g + grp``
+    iterates exactly as the old fused dimension did.
+    """
+    group = max(1, hq // max(hkv, 1))
+    out = []
+    for bq in TPU_CANDIDATE_BLOCKS:
+        for bkv in TPU_CANDIDATE_BLOCKS:
+            if s % bq or s % bkv:
+                continue
+            nq, nkv = s // bq, s // bkv
+            accesses = (
+                te.BlockAccess(
+                    "q",
+                    (1, bq, d),
+                    lambda bb, hk, gg, i, j, g=group, hq=hq: (
+                        bb * hq + hk * g + gg,
+                        i,
+                        0,
+                    ),
+                    dtype_bits,
+                ),
+                te.BlockAccess(
+                    "k",
+                    (1, bkv, d),
+                    lambda bb, hk, gg, i, j, hkv=hkv: (bb * hkv + hk, j, 0),
+                    dtype_bits,
+                ),
+                te.BlockAccess(
+                    "v",
+                    (1, bkv, d),
+                    lambda bb, hk, gg, i, j, hkv=hkv: (bb * hkv + hk, j, 0),
+                    dtype_bits,
+                ),
+                te.BlockAccess(
+                    "o",
+                    (1, bq, d),
+                    lambda bb, hk, gg, i, j, g=group, hq=hq: (
+                        bb * hq + hk * g + gg,
+                        i,
+                        0,
+                    ),
+                    dtype_bits,
+                    True,
+                ),
+            )
+            # causal: ~half the kv blocks do useful work; flops halve but the
+            # fetch schedule (grid) is unchanged
+            useful = 0.5 if causal else 1.0
+            out.append(
+                te.PallasConfig(
+                    name=f"flash_bq{bq}_bkv{bkv}",
+                    grid=(b, hkv, group, nq, nkv),
+                    accesses=accesses,
+                    flops_per_step=useful * (4.0 * bq * bkv * d),
+                    is_matmul=True,
+                    scratch_bytes=4 * (bq * d + 2 * bq),
+                    meta={"block_q": bq, "block_kv": bkv},
+                )
+            )
+    return out
+
+
+__all__ = ["config_space", "flash_attention", "mha_plain", "select_blocks", "tpu_config_space"]

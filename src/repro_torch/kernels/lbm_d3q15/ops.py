@@ -10,6 +10,7 @@ import functools
 
 import torch
 
+from ...core import tpu_estimator as te
 from ...core.appspec import lbm_config_space, lbm_d3q15
 from ...core.estimator import EstimateCache, VolumeEstimate, estimate_many
 from ...core.machine import H100_SXM, GPUMachine
@@ -69,4 +70,67 @@ def lbm_step(
     return lbm_d3q15_cuda(f, phase, vel, tau=tau, width=width, block=tuple(block))
 
 
-__all__ = ["lbm_step", "select_block", "rank_configs", "config_space"]
+# The JAX package's Pallas tiles, for the TPU backend's host-side ranking.
+TPU_CANDIDATE_BLOCKS = ((4, 4), (8, 8), (8, 16), (16, 8), (16, 16), (32, 8), (8, 32))
+
+
+def tpu_config_space(shape: tuple[int, int, int], dtype_bits: int):
+    """Candidate PallasConfigs for the LBM step (pdf 3x3 + phase 3x3 + vel + outs).
+
+    Copy of ``repro.kernels.lbm_d3q15.ops.config_space`` (the Pallas tile
+    space that :mod:`repro_torch.core.tpu_estimator` ranks on the host;
+    the port launches no Pallas kernel).
+    """
+    nz, ny, nx = shape
+    nxp = nx + 2
+    neighbors = [(dz, dy) for dz in (-1, 0, 1) for dy in (-1, 0, 1)]
+    out = []
+    for bz, by in TPU_CANDIDATE_BLOCKS:
+        if nz % bz or ny % by:
+            continue
+        accesses = []
+        for k, (dz, dy) in enumerate(neighbors):
+            accesses.append(
+                te.BlockAccess(
+                    f"f{k}",
+                    (15, bz, by, nxp),
+                    (lambda dz=dz, dy=dy: (lambda i, j: (0, i + dz, j + dy, 0)))(),
+                    dtype_bits,
+                )
+            )
+        for k, (dz, dy) in enumerate(neighbors):
+            accesses.append(
+                te.BlockAccess(
+                    f"p{k}",
+                    (bz, by, nxp),
+                    (lambda dz=dz, dy=dy: (lambda i, j: (i + dz, j + dy, 0)))(),
+                    dtype_bits,
+                )
+            )
+        accesses.append(
+            te.BlockAccess("vel", (3, bz, by, nxp), lambda i, j: (0, i, j, 0), dtype_bits)
+        )
+        accesses.append(
+            te.BlockAccess(
+                "f_out", (15, bz, by, nx), lambda i, j: (0, i, j, 0), dtype_bits, True
+            )
+        )
+        accesses.append(
+            te.BlockAccess(
+                "phase_out", (bz, by, nx), lambda i, j: (i, j, 0), dtype_bits, True
+            )
+        )
+        out.append(
+            te.PallasConfig(
+                name=f"lbm_bz{bz}_by{by}",
+                grid=(nz // bz, ny // by),
+                accesses=tuple(accesses),
+                flops_per_step=350.0 * bz * by * nx,
+                is_matmul=False,
+                meta={"block": (bz, by)},
+            )
+        )
+    return out
+
+
+__all__ = ["lbm_step", "select_block", "rank_configs", "config_space", "tpu_config_space"]

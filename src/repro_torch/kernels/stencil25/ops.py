@@ -11,6 +11,7 @@ import functools
 
 import torch
 
+from ...core import tpu_estimator as te
 from ...core.appspec import star3d, stencil_config_space
 from ...core.estimator import EstimateCache, VolumeEstimate, estimate_many
 from ...core.machine import H100_SXM, GPUMachine
@@ -77,4 +78,59 @@ def stencil25(
     return stencil25_cuda(src, r=r, block=tuple(block), fold=tuple(fold or (1, 1, 1)))
 
 
-__all__ = ["stencil25", "select_block", "rank_configs", "config_space"]
+# The JAX package's Pallas tiles, for the TPU backend's host-side ranking.
+TPU_CANDIDATE_BLOCKS = ((8, 8), (8, 16), (16, 8), (16, 16), (16, 32), (32, 16), (32, 32), (64, 8), (8, 64))
+
+
+def tpu_config_space(shape: tuple[int, int, int], r: int, dtype_bits: int):
+    """Candidate PallasConfigs for `core.tpu_estimator` ranking.
+
+    Copy of ``repro.kernels.stencil25.ops.config_space`` (the Pallas tile
+    space that :mod:`repro_torch.core.tpu_estimator` ranks on the host;
+    the port launches no Pallas kernel).
+
+    Nine overlapping input tiles model the halo refetch redundancy; interior
+    (unclamped) index maps are used as the representative group (paper §III.D:
+    representative collaborative groups away from boundaries).
+    """
+    nz, ny, nx = shape
+    nxp = nx + 2 * r
+    out = []
+    for bz, by in TPU_CANDIDATE_BLOCKS:
+        if bz < r or by < r or nz % bz or ny % by:
+            continue
+        accesses = []
+        for k, (dz, dy) in enumerate(
+            [(dz, dy) for dz in (-1, 0, 1) for dy in (-1, 0, 1)]
+        ):
+            accesses.append(
+                te.BlockAccess(
+                    name=f"in{k}",
+                    block_shape=(bz, by, nxp),
+                    index_map=(lambda dz=dz, dy=dy: (lambda i, j: (i + dz, j + dy, 0)))(),
+                    dtype_bits=dtype_bits,
+                )
+            )
+        accesses.append(
+            te.BlockAccess(
+                name="out",
+                block_shape=(bz, by, nx),
+                index_map=lambda i, j: (i, j, 0),
+                dtype_bits=dtype_bits,
+                is_output=True,
+            )
+        )
+        out.append(
+            te.PallasConfig(
+                name=f"stencil_bz{bz}_by{by}",
+                grid=(nz // bz, ny // by),
+                accesses=tuple(accesses),
+                flops_per_step=2.0 * (6 * r + 1) * bz * by * nx,
+                is_matmul=False,
+                meta={"block": (bz, by)},
+            )
+        )
+    return out
+
+
+__all__ = ["stencil25", "select_block", "rank_configs", "config_space", "tpu_config_space"]

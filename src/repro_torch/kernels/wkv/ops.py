@@ -14,6 +14,7 @@ records the times, so the order stays checkable.
 """
 from __future__ import annotations
 
+from ...core import tpu_estimator as te
 from .kernel import HEAD_DIMS, wkv_cuda
 from .ref import wkv_plain
 
@@ -49,4 +50,42 @@ def wkv(r, k, v, wlog, u, chunk: int | None = None, s0=None):
     return wkv_cuda(r, k, v, wlog, u, chunk=chunk, s0=s0)
 
 
-__all__ = ["config_space", "select_chunk", "wkv", "wkv_plain"]
+# The JAX package's Pallas tiles, for the TPU backend's host-side ranking.
+TPU_CANDIDATE_CHUNKS = (16, 32, 64, 128, 256)
+
+
+def tpu_config_space(BH: int, S: int, K: int, dtype_bits: int = 32):
+    """Candidate chunk lengths L: per-step flops grow ~L^2*K (intra matmuls) while
+    the sequential grid and per-token HBM traffic shrink ~1/L — the estimator
+    finds the knee analytically.
+
+    Copy of ``repro.kernels.wkv.ops.config_space`` (the Pallas tile space
+    that :mod:`repro_torch.core.tpu_estimator` ranks on the host; the port
+    launches no Pallas kernel).
+    """
+    out = []
+    for L in TPU_CANDIDATE_CHUNKS:
+        if S % L:
+            continue
+        accesses = tuple(
+            te.BlockAccess(nm, (1, L, K), lambda b, c: (b, c, 0), dtype_bits)
+            for nm in ("r", "k", "v", "w")
+        ) + (
+            te.BlockAccess("o", (1, L, K), lambda b, c: (b, c, 0), dtype_bits, True),
+        )
+        out.append(
+            te.PallasConfig(
+                name=f"wkv_L{L}",
+                grid=(BH, S // L),
+                accesses=accesses,
+                # intra: A (L^2 K) + A@v (L^2 K) + inter/inject (2 L K^2)
+                flops_per_step=2.0 * (2 * L * L * K + 2 * L * K * K),
+                is_matmul=True,
+                scratch_bytes=4 * K * K,
+                meta={"chunk": L},
+            )
+        )
+    return out
+
+
+__all__ = ["config_space", "select_chunk", "wkv", "wkv_plain", "tpu_config_space"]

@@ -13,12 +13,13 @@ package's (``repro.explore``), on the CPU.
   multi-machine run and ``compare()``, ``workers=2`` against the serial run,
   a warm aliased store that traces no IR, ``"h100"`` over both paper spaces
   in ``core.ranking.rank_configs``' order, ``Study.step_time``, and the
-  TPU, ``explain`` and ``lint=`` branches, which raise naming their
-  ROADMAP items;
+  TPU backend, ``explain`` and the ``lint=`` gate, equal to the JAX
+  package's;
 * **the CLI:** the sweep prints ``tests/golden/explore_stencil25_{a100,
   v100}.json`` byte for byte after ``tests/test_golden_cli.py``'s
-  stripping; ``--list``, ``--machines``, ``--prune``, ``--pareto`` and the
-  store and alias flags print what the JAX CLI prints.
+  stripping; ``--list``, ``--machines``, ``--prune``, ``--pareto``, the
+  store and alias flags, ``--backend tpu``, a TPU machine, ``--explain`` and
+  ``lint`` print what the JAX CLI prints.
 """
 from __future__ import annotations
 
@@ -283,26 +284,63 @@ def test_step_time_is_graph_step_time():
     assert a.step_time_s == b.step_time_s and a.render_json() == b.render_json()
 
 
+def _outcome(fn):
+    """What a call gives: its value, or its exception's type and message."""
+    try:
+        return fn()
+    except Exception as e:  # noqa: BLE001 - the exception is the outcome compared
+        return (type(e).__name__, str(e))
+
+
+def _lint_outcome(mod, lint):
+    def run():
+        study = mod.Study("stencil25", lint=lint, sample=8, seed=1)
+        res = study.result()
+        return [rec_tuple(r) for r in res.records], {fp: rep.to_json() for fp, rep in study.lint_reports.items()}
+    return _outcome(run)
+
+
 def test_tpu_explain_and_lint_raise_naming_their_items():
-    for kw in ({"backend": "tpu"}, {"machine": "tpuv5e"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-            tx.Study("stencil25", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        tx.Study("wkv_tpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        treg.get_kernel("attention_tpu").tpu_configs()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        treg.get_estimator("tpu")
+    """The TPU backend, ``explain`` and the ``lint=`` gate, which raised
+    before the port had them, now run and give what the JAX package gives:
+    the same records, the same reports and the same refusals."""
+    for kernel, kw in (("stencil25", {"backend": "tpu"}), ("wkv_tpu", {"machines": ["tpuv5e", "tpuv6e"]})):
+        got, want = tx.Study(kernel, **kw).run(), jx.Study(kernel, **kw).run()
+        assert list(got.results) == list(want.results)
+        for label in want.results:
+            assert_results_equal(got.results[label], want.results[label])
+    got = _outcome(lambda: tx.Study("stencil25", machine="tpuv5e"))
+    assert got == _outcome(lambda: jx.Study("stencil25", machine="tpuv5e")) and got[0] == "ValueError"
+    from repro.frontend.ir import ir_fingerprint as j_fp
+    from repro.frontend.pallas import trace_pallas as j_trace
+    from repro_torch.frontend.ir import ir_fingerprint as t_fp
+    from repro_torch.frontend.pallas import trace_pallas as t_trace
+
+    got_cfgs = treg.get_kernel("attention_tpu").tpu_configs()
+    want_cfgs = jreg.get_kernel("attention_tpu").tpu_configs()
+    assert [(c.name, c.grid, c.meta) for c in got_cfgs] == [(c.name, c.grid, c.meta) for c in want_cfgs]
+    assert [t_fp(t_trace(c)) for c in got_cfgs] == [j_fp(j_trace(c)) for c in want_cfgs]
+    wkv_cfgs = treg.get_kernel("wkv_tpu").tpu_configs(), jreg.get_kernel("wkv_tpu").tpu_configs()
+    got = treg.get_estimator("tpu").estimate_batch([t_trace(c) for c in wkv_cfgs[0]], tmach.get_machine("tpuv6e"))
+    want = jreg.get_estimator("tpu").estimate_batch([j_trace(c) for c in wkv_cfgs[1]],
+                                                    jreg.get_machine("tpuv6e"))
+    assert [rec_tuple(r) for r in got] == [rec_tuple(r) for r in want]
     for lint in ("error", "warn", "annotate"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-            tx.Study("stencil25", lint=lint)
+        got = _lint_outcome(tx, lint)
+        assert got == _lint_outcome(jx, lint), lint
+        assert (got[0] == "LintError") == (lint == "warn")  # the stencil's halo is a warn
     with pytest.raises(ValueError, match="lint="):
         tx.Study("stencil25", lint="loud")
-    study = tx.Study("attention", machine="a100", lint="off")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        study.explain()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        tx.Study.step_time(None, "a100", lint="warn")
+    got = tx.Study("attention", machine="a100", lint="off").explain()
+    want = jx.Study("attention", machine="a100", lint="off").explain()
+    assert got.render() == want.render() and got.to_json() == want.to_json()
+    from repro.configs import get_arch as j_arch
+    from repro_torch.configs import get_arch as t_arch
+
+    def step(mod, arch):
+        return _outcome(lambda: mod.Study.step_time(arch("olmo-1b").smoke(), "a100", batch=4, seq=128,
+                                                    lint="warn").render_json())
+    assert step(tx, t_arch) == step(jx, j_arch)
     assert sorted(treg.KERNELS) == sorted(jreg.KERNELS)
     assert [dataclasses.astuple(e)[:4] for e in treg.KERNELS.values()] == [
         dataclasses.astuple(e)[:4] for e in jreg.KERNELS.values()]
@@ -367,14 +405,20 @@ def test_cli_equals_the_jax_cli(argv, tmp_path, monkeypatch, capsys):
 
 
 def test_cli_left_out_parts_exit_2(tmp_path, capsys):
-    for argv, item in ((["--kernel", "attention", "--backend", "tpu", "--no-store"], "item 10"),
-                       (["--kernel", "stencil25_tpu", "--no-store"], "item 10"),
-                       (["--kernel", "stencil25", "--machine", "tpuv6e", "--no-store"], "item 10"),
-                       (["--kernel", "stencil25", "--explain", "best", "--no-store"], "item 9"),
-                       (["lint", "--all"], "item 9")):
-        rc, out, err = _run(tcli.main, argv, capsys)
-        assert rc == 2 and out == "", argv
-        assert f"ROADMAP Queue 1 {item}" in err, (argv, err)
+    """What the port's CLI once refused (exit 2) now prints what the JAX
+    CLI prints, with its exit code: a ``--backend tpu`` sweep (``wkv``:
+    ``attention_tpu``'s 16 configurations take seconds each on the host), a
+    ``*_tpu`` kernel, a GPU kernel on a TPU machine (exit 2 in both),
+    ``--explain`` and ``lint --all``.  Then ``--trace``."""
+    for argv in (["--kernel", "wkv", "--backend", "tpu", "--no-store"],
+                 ["--kernel", "stencil25_tpu", "--machine", "tpuv6e", "--no-store", "--json"],
+                 ["--kernel", "stencil25", "--machine", "tpuv6e", "--no-store"],
+                 ["--kernel", "stencil25", "--sample", "12", "--explain", "best", "--no-store"],
+                 ["--kernel", "lbm_d3q15", "--sample", "6", "--explain", "2", "--no-store", "--json"],
+                 ["lint", "--all"]):
+        got, want = _run(tcli.main, argv, capsys), _run(jcli.main, argv, capsys)
+        assert (got[0], _strip_wall(got[1]), got[2]) == (want[0], _strip_wall(want[1]), want[2]), argv
+        assert got[0] == (2 if "tpuv6e" in argv and "stencil25" in argv else 0), argv
     trace = tmp_path / "sweep_trace.json"
     rc, out, err = _run(tcli.main, ["--kernel", "lbm_d3q15", "--sample", "5", "--no-store", "--json",
                                     "--trace", str(trace)], capsys)

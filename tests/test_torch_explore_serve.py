@@ -7,9 +7,10 @@ the JAX package's, over loopback HTTP.
   estimate;
 * two client processes share the daemon's warm state: what one estimated
   cold, the other reads from the store;
-* ``/health``, ``/metrics``, unknown paths, bad requests and a TPU kernel
-  (refused, naming ROADMAP Queue 1 item 10); ``python -m
-  repro_torch.explore serve`` starts, answers and stops on ``/shutdown``.
+* ``/health``, ``/metrics``, unknown paths and bad requests; the TPU
+  kernels (the ported TPU backend) answer as the JAX daemon's do, records
+  and refusals alike; ``python -m repro_torch.explore serve`` starts,
+  answers and stops on ``/shutdown``.
 """
 from __future__ import annotations
 
@@ -136,11 +137,22 @@ def test_health_errors_and_tpu_kernels(daemons):
     m = c.metrics()
     assert set(m) == {"serve", "obs"} and m["serve"]["queries"] == 0
     for body, match in ((("nope", CONFIGS[:1]), "unknown kernel"),
-                        (("stencil25", [1]), "not a config dict"),
-                        (("stencil25_tpu", [{"name": "x"}]), "ROADMAP Queue 1 item 10"),
-                        (("attention", [{"block": (8, 8, 1)}], "h100", None, "tpu"), "ROADMAP Queue 1 item 10")):
+                        (("stencil25", [1]), "not a config dict")):
         with pytest.raises(tserve.ServeError, match=match):
             c.estimate(*body)
+    # a TPU kernel: an identity the registry did not generate is refused with
+    # the JAX daemon's words; the registry's own are estimated, then warm
+    for body in (("stencil25_tpu", [{"name": "x"}]), ("attention", [{"block": (8, 8, 1)}], "h100", None, "tpu")):
+        with pytest.raises(tserve.ServeError) as got:
+            c.estimate(*body)
+        with pytest.raises(jserve.ServeError) as want:
+            daemons["jax"].client.estimate(*body)
+        assert str(got.value) == str(want.value) and "registry-generated identity" in str(got.value)
+    tpu_cfgs = [{"name": "wkv_L64", "chunk": 64}, {"name": "wkv_L16", "chunk": 16}]
+    for phase in ("cold", "warm"):
+        got = c.estimate("wkv_tpu", tpu_cfgs, machine="tpuv6e")
+        assert got == daemons["jax"].client.estimate("wkv_tpu", tpu_cfgs, machine="tpuv6e")
+        assert got["stats"]["estimated"] == (2 if phase == "cold" else 0)
     with pytest.raises(tserve.ServeError, match="unknown path"):
         c._call("GET", "/nope")
     with pytest.raises(tserve.ServeError) as got:

@@ -189,6 +189,23 @@ def test_study_h100_stencil_pick_runs_and_matches_plain(cuda):
     assert _err(out, stencil25_plain(src, 4)) <= TOL[torch.float64]
 
 
+def test_lint_gated_stencil_pick_runs_and_matches_plain(cuda):
+    """The pick of the static auditor's gate (``Study(..., lint="error")``:
+    every configuration audited before it is estimated), launched at a small
+    grid; the gate's reports carry no error."""
+    from repro_torch.explore import Study
+
+    study = Study("stencil25", machines=["h100"], lint="error")
+    cfg = study.top(1)[0].config
+    assert len(study.lint_reports) == 162 and all(r.ok("error") for r in study.lint_reports.values())
+    src = torch.randn((16, 32, 64), generator=torch.Generator(device=cuda).manual_seed(3),
+                      device=cuda, dtype=torch.float64)
+    n = stencil25_cuda.launches
+    out = stencil25(src, block=tuple(cfg["block"]), fold=tuple(cfg["fold"]))
+    assert stencil25_cuda.launches == n + 1
+    assert _err(out, stencil25_plain(src, 4)) <= TOL[torch.float64]
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     src = torch.randn((16, 16, 32), device=cuda)
     with pytest.raises(ValueError):

@@ -208,7 +208,7 @@ def test_missing_and_negative_durations_rejected():
         Replayer(bare)
     from repro_torch.graph.kernels import elementwise_ir
 
-    ir, _ = elementwise_ir(256)
+    ir, _ = elementwise_ir(256, backend="gpu")
     dag = KernelDAG(mesh=MESH_1)
     dag.compute("k", ir)
     with pytest.raises(ValueError, match="no duration"):

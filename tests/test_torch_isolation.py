@@ -84,7 +84,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "repro_torch.explore.space", "repro_torch.explore.prune", "repro_torch.explore.pareto",
                  "repro_torch.explore.serve", "repro_torch.explore.search",
                  "repro_torch.explore.search.driver", "repro_torch.explore.search.halving",
-                 "repro_torch.explore.search.propose", "repro_torch.explore.search.convergence"):
+                 "repro_torch.explore.search.propose", "repro_torch.explore.search.convergence",
+                 "repro_torch.analysis", "repro_torch.analysis.affine", "repro_torch.analysis.findings",
+                 "repro_torch.analysis.fixtures", "repro_torch.analysis.passes", "repro_torch.analysis.perf",
+                 "repro_torch.obs.explain", "repro_torch.core.tpu_estimator", "repro_torch.frontend.pallas"):
         assert name in res["modules"]
 
 

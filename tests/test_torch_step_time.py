@@ -9,8 +9,11 @@ out, and the kernel classes that set its predictions beside the card.
 * **the CLI:** ``python -m repro_torch.explore graph`` prints the JAX
   package's golden report (``tests/golden/graph_rwkv6_a100.txt``, read,
   never written) byte for byte; ``--json`` and ``--trace`` too;
-* **left out:** a TPU machine and ``lint`` raise or exit 2, each naming its
-  ROADMAP item; the CLI's other subcommands run as the JAX CLI's do;
+* **TPU machines and the audit:** ``step_time`` on ``tpuv5e`` and
+  ``tpuv6e``, ``trace_step(backend="tpu")``, ``lint=`` and
+  ``KernelDAG.lint`` equal the JAX package's; the CLI prints
+  ``tests/golden/graph_zamba2_tpuv5e.txt`` byte for byte, and its other
+  subcommands (``lint`` among them) run as the JAX CLI's do;
 * **kernel classes:** ``graph.classes`` sorts kernel names the profiler
   reported on an H100 (``benchmarks/torch_train_profile.py`` and
   ``torch_serve_profile.py``) into the DAG's node classes, and sums a
@@ -33,6 +36,7 @@ import pytest
 from repro.configs import get_arch as jax_get_arch
 from repro.explore import cli as jax_cli
 from repro.graph import step_time as jax_step_time
+from repro.graph import trace_step as jax_trace_step
 from repro_torch.configs import get_arch
 from repro_torch.explore import cli
 from repro_torch.explore.registry import get_estimator
@@ -47,7 +51,7 @@ from repro_torch.graph.classes import (
 from repro_torch.launch.one_card import full_width_paths, one_card_config
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.trace import validate_chrome_trace
-from test_torch_graph import assert_reports_equal
+from test_torch_graph import _node_fields, assert_reports_equal
 
 ROOT = Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "golden" / "graph_rwkv6_a100.txt"
@@ -171,37 +175,59 @@ def test_cli_trace_and_explain(tmp_path, capsys):
 
 
 # --------------------------------------------------------------------------- #
-# what the port leaves out raises, naming its ROADMAP item
+# the TPU machines and the static audit, equal to the JAX package's
 # --------------------------------------------------------------------------- #
 
 
 def test_tpu_machine_raises():
-    cfg = get_arch("zamba2-7b").smoke()
+    """A TPU machine, which raised before the port had its TPU backend: the
+    step priced on each spelling of ``tpuv5e`` and ``tpuv6e`` equals the JAX
+    package's, node for node, and ``trace_step(backend="tpu")`` gives the
+    JAX package's DAG."""
+    cfg, ref_cfg = get_arch("zamba2-7b").smoke(), jax_get_arch("zamba2-7b").smoke()
     for name in ("tpuv5e", "TPUv6e", "tpu-v5e"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-            step_time(cfg, name, mesh="data=4,model=2", batch=8, seq=128, kind="train")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        trace_step(cfg, backend="tpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        get_estimator("tpu")
+        rep = step_time(cfg, name, mesh="data=4,model=2", batch=8, seq=128, kind="train")
+        ref = jax_step_time(ref_cfg, name, mesh="data=4,model=2", batch=8, seq=128, kind="train")
+        assert_reports_equal(rep, ref)
+    dag = trace_step(cfg, backend="tpu")
+    ref_dag = jax_trace_step(ref_cfg, backend="tpu")
+    assert list(dag.nodes) == list(ref_dag.nodes)
+    assert [_node_fields(n) for n in dag.nodes.values()] == [_node_fields(n) for n in ref_dag.nodes.values()]
+    assert all(n.ir.granularity == "block" for n in dag.compute_nodes if n.ir is not None)
+    assert get_estimator("tpu").backend == "tpu"
 
 
 def test_tpu_machine_cli_exits_2(capsys):
+    """The CLI on a TPU machine, which exited 2: it now prints the JAX
+    package's golden report byte for byte, exit 0."""
     rc, out, err = _run(cli.main, ["graph", "--model", "zamba2-7b", "--smoke", "--machine", "tpuv5e",
                                    "--mesh", "data=4,model=2", "--batch", "8", "--seq", "128",
                                    "--kind", "train"], capsys)
-    assert rc == 2 and out == ""
-    assert "ROADMAP Queue 1 item 10" in err
+    assert rc == 0, err
+    assert out == (ROOT / "tests" / "golden" / "graph_zamba2_tpuv5e.txt").read_text()
+
+
+def _lint_outcome(fn, arch, lint):
+    try:
+        rep = fn(arch("rwkv6-1.6b").smoke(), "a100", batch=8, seq=128, lint=lint)
+    except Exception as e:  # noqa: BLE001 - the refusal is the outcome compared
+        return type(e).__name__, str(e)
+    return rep.render_json(), {nid: r.to_json() for nid, r in rep.lint_reports.items()}
 
 
 def test_lint_raises():
+    """``lint=``, which raised before the port had the audit: each setting
+    gives the JAX package's reports, or its refusal, and so does
+    ``KernelDAG.lint``."""
+    for lint in ("error", "warn", "annotate", "off"):
+        got = _lint_outcome(step_time, get_arch, lint)
+        assert got == _lint_outcome(jax_step_time, jax_get_arch, lint), lint
+        assert bool(got[1]) == (lint != "off")
     cfg = get_arch("rwkv6-1.6b").smoke()
-    for lint in ("error", "warn", "annotate"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-            step_time(cfg, "a100", batch=8, seq=128, lint=lint)
     assert step_time(cfg, "a100", batch=8, seq=128, lint="off").lint_reports == {}
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        trace_step(cfg, batch=8, seq=128).lint("a100")
+    got = trace_step(cfg, batch=8, seq=128).lint("a100")
+    want = jax_trace_step(jax_get_arch("rwkv6-1.6b").smoke(), batch=8, seq=128).lint("a100")
+    assert {nid: r.to_json() for nid, r in got.items()} == {nid: r.to_json() for nid, r in want.items()}
     assert isinstance(trace_step(cfg, batch=8, seq=128), KernelDAG)
 
 
@@ -238,7 +264,7 @@ def _volatile_dropped(out: str) -> str:
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["lint", "--kernel", "stencil25"], "item 9"),
+    (["lint", "--kernel", "stencil25"], "audit"),
     (["search", "--kernel", "stencil25", "--budget", "8", "--json"], "item 8"),
     (["store", "info", "sweep.jsonl"], "item 8"),
     (["serve"], "item 8"),
@@ -247,18 +273,13 @@ def _volatile_dropped(out: str) -> str:
     ([], "item 8"),
 ], ids=lambda v: " ".join(v) if isinstance(v, list) else v)
 def test_other_subcommands_exit_2(argv, item, tmp_path, monkeypatch, capsys):
-    """``lint`` (ROADMAP Queue 1 item 9) exits 2 naming its item.  The
-    subcommands that item 8 ported run as the JAX CLI runs them, each
+    """The CLI's other subcommands (``lint``, the audit, and those that
+    ROADMAP Queue 1 item 8 ported) run as the JAX CLI runs them, each
     package in a directory of its own (the default stores land there): the
     same exit code and the same output, less wall-clock figures.  ``search``
     takes the budget it requires and ``store info`` a store that a small
     sweep wrote; ``serve`` answers ``/health`` and stops on ``/shutdown``;
     with no arguments both CLIs exit 2 asking for ``--kernel``."""
-    if item == "item 9":
-        rc, out, err = _run(cli.main, argv, capsys)
-        assert rc == 2 and out == ""
-        assert f"ROADMAP Queue 1 {item}" in err
-        return
     runs = {}
     for name, main in (("jax", jax_cli.main), ("port", cli.main)):
         cwd = tmp_path / name
