@@ -215,7 +215,29 @@ Phases, one JSON line each:
    single-device makespan is not exactly the node durations folded in
    schedule order.  A prediction far from the card is what the phase
    records, not a failure (``benchmarks/torch_step_time_check.py`` sets
-   each prediction beside a warm step, class by class).
+   each prediction beside a warm step, class by class);
+13. dryrun — the dry run, ``python -m repro_torch.launch.dryrun``, on the
+   card's host and not on the card: OLMo-1B ``train_4k`` (16, 16),
+   Qwen2.5-14B ``prefill_32k`` (16, 16), RWKV6-1.6B ``long_500k`` (16, 16)
+   and DBRX-132B ``train_4k`` (2, 16, 16), at full width, one process each,
+   all started together, each on a fake process group of 256 or 512 ranks
+   with fake tensors (no parameter drawn, no kernel built or launched).  One
+   line a cell: status, trace seconds, argument and output bytes per
+   device, FLOPs, bytes accessed and collectives per device, and the three
+   roofline terms, ``dominant`` and ``roofline_fraction`` on ``TPU_V5E``
+   (the JAX package's pricing) and on the port-side H100 machine; fails
+   unless every cell is ``ok``.  Then two one-card cells traced on a
+   world-1 fake group through a (1, 1) mesh and priced on the H100 machine:
+   ``train_olmo``'s cut step (batch 4, S 4096) and ``serve_qwen``'s prefill
+   (4 x 512), each beside this run's measured step or prefill as predicted
+   over measured;
+14. simulate — ``benchmarks/torch_simulate_check.py`` on phase ``rank``'s
+   records: the copy of the JAX package's sectored-LRU simulator on
+   ``H100_SXM`` at the paper grids for the LBM pick, ``rank``'s fastest and
+   slowest LBM blocks and eleven more spread over ``rank``'s order, the
+   stencil pick and ``rank``'s fastest stencil configuration, in six host
+   processes; each configuration's simulated DRAM and L2<->L1 bytes per LUP
+   beside its effective bytes per LUP, and Spearman's rho over the LBM's.
 
 Then the ``nvidia-smi`` line, a ``kernels`` JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line, on
@@ -230,6 +252,7 @@ import io
 import itertools
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -283,7 +306,9 @@ from repro_torch.models import rwkv6 as model_rwkv6  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.train.step import make_decode_step, make_prefill_step  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 import torch_rank_check as rank_check  # noqa: E402
+import torch_simulate_check as simulate_check  # noqa: E402
 import torch_stencil_probe as stencil_probe  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -371,6 +396,10 @@ AUDIT_FASTEST = 10  # phase rank's fastest configurations, set beside the perf l
 AUDIT_STEP = ("olmo-1b", 4, 4096, "train")  # (arch, batch, seq, kind): a model step through the auditor
 AUDIT_TPU_MACHINES = ("tpuv5e", "tpuv6e")  # the TPU backend's analytic machines, run on the host
 AUDIT_TPU_KERNELS = ("stencil25_tpu", "lbm_d3q15_tpu", "attention_tpu", "wkv_tpu")
+DRYRUN_CELLS = (("olmo-1b", "train_4k", "single"), ("qwen2.5-14b", "prefill_32k", "single"),
+                ("rwkv6-1.6b", "long_500k", "single"), ("dbrx-132b", "train_4k", "multi"))
+DRYRUN_OUT = ROOT / "build" / "dryrun_torch"
+DRYRUN_TIMEOUT_S = 480  # all four cells run at once, each in its own process
 GOLDEN_DIR = ROOT / "tests" / "golden"
 # golden file -> (exit code, argv of the CLI), as tests/test_golden_lint.py
 # and tests/test_golden_graph.py run the JAX CLI
@@ -2407,6 +2436,104 @@ def phase_step_time(served: dict, trains: dict) -> list[dict]:
     return rows
 
 
+def dryrun_cells() -> list[dict]:
+    """``DRYRUN_CELLS`` through ``python -m repro_torch.launch.dryrun``, one
+    process each, all started together and all ended by the time limit;
+    returns the cells' JSONs."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]),
+           "CUDA_VISIBLE_DEVICES": ""}  # a fake group and fake tensors: no card
+    procs = []
+    try:
+        for arch, shape, mesh in DRYRUN_CELLS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                   "--mesh", mesh, "--out", str(DRYRUN_OUT)]
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True))
+        deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+        logs = [p.communicate(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+    except subprocess.TimeoutExpired:
+        fail(f"dryrun: the cells did not end within {DRYRUN_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cells = []
+    for (arch, shape, mesh), p, (out, err) in zip(DRYRUN_CELLS, procs, logs):
+        path = Path(dryrun.cell_path(str(DRYRUN_OUT), mesh, arch, shape, "baseline"))
+        if p.returncode or not path.exists():
+            fail(f"dryrun: {arch}/{shape}/{mesh} exited {p.returncode}: {(out + err)[-2000:]}")
+        cells.append(json.loads(path.read_text()))
+    return cells
+
+
+def phase_dryrun(served: dict, trains: dict) -> dict:
+    """``dryrun``: four full-width cells of the dry run on fake 256- and
+    512-rank groups, then two one-card cells priced on the port-side H100
+    machine beside this run's measured step and prefill, as the module
+    docstring says."""
+    t0 = time.perf_counter()
+    cells = dryrun_cells()
+    wall = time.perf_counter() - t0
+    bad = []
+    for c in cells:
+        cell = f"{c['arch']}/{c['shape']}/{c['mesh']}"
+        if c["status"] != "ok":
+            bad.append(f"{cell}: {c['status']} {c.get('error', c.get('skip_reason', ''))}")
+            continue
+        emit({"phase": "dryrun", "cell": cell, "status": c["status"], "seconds_lower": c["seconds_lower"],
+              "traced_ops": c["traced_ops"],
+              "argument_bytes_per_device": c["memory_analysis"]["argument_size_in_bytes"],
+              "output_bytes_per_device": c["memory_analysis"]["output_size_in_bytes"],
+              "flops_per_device": c["cost_analysis_raw"]["flops"],
+              "bytes_accessed_per_device": c["cost_analysis_raw"]["bytes accessed"],
+              "collectives": c["collectives"]["counts"],
+              "wire_bytes_per_device": c["collectives"]["total_wire_bytes_per_device"],
+              **{key: {k: c[key][k] for k in ("t_compute_s", "t_memory_s", "t_collective_s", "dominant",
+                                              "roofline_fraction", "useful_flops_ratio")}
+                 for key in ("roofline", "roofline_h100")}})
+    if bad:
+        fail(f"dryrun: {'; '.join(bad)}")
+    train_shape, _ = one_card.one_card_train_shape(SHAPES[one_card.TRAIN_SHAPE])
+    serve_shape = ShapeConfig("serve_prefill", one_card.SERVE_PROMPT_LEN, one_card.SERVE_REQUESTS, "prefill")
+    one = [("train_olmo", get_arch(one_card.TRAIN_PATHS["train_olmo"]), train_shape,
+            trains["train_olmo"]["step_ms_warm_median"], "warm median step (host clock after synchronize)"),
+           ("serve_qwen", one_card.one_card_config(SERVE["serve_qwen"][0])[0], serve_shape,
+            served["serve_qwen"]["prefill_ms"], "prefill, cold: the serve phase's first (CUDA events)")]
+    rows = []
+    for path, cfg, shape, measured_ms, how in one:
+        t1 = time.perf_counter()
+        priced = dryrun.price_one_card(cfg, shape)
+        r = priced["roofline"]
+        predicted = max(r["t_compute_s"], r["t_memory_s"], r["t_collective_s"])
+        row = {"phase": "dryrun", "one_card": path, "arch": cfg.name, "batch": shape.global_batch,
+               "seq": shape.seq_len, "kind": shape.kind, "machine": "H100_ROOFLINE (port-side)",
+               "seconds_lower": priced["seconds_lower"], "host_s": time.perf_counter() - t1,
+               "flops": priced["cost_analysis_raw"]["flops"],
+               "bytes_accessed": priced["cost_analysis_raw"]["bytes accessed"],
+               "argument_bytes": priced["memory_analysis"]["argument_size_in_bytes"],
+               **{k: r[k] for k in ("t_compute_s", "t_memory_s", "dominant", "model_flops", "useful_flops_ratio")},
+               "predicted_s": predicted, "measured_s": measured_ms / 1e3, "measured": how,
+               "predicted_over_measured": predicted / (measured_ms / 1e3)}
+        emit(row)
+        rows.append(row)
+        if not (math.isfinite(predicted) and predicted > 0):
+            fail(f"dryrun: {path}: the one-card prediction {predicted} is not finite and positive")
+    return {"cells": cells, "one_card": rows, "wall_s": wall}
+
+
+def phase_simulate() -> dict:
+    """``simulate``: the LRU simulator's volumes of the LBM and stencil
+    configurations ``benchmarks/torch_simulate_check.py`` picks from phase
+    ``rank``'s records, beside the effective bytes per LUP there."""
+    res = simulate_check.run(json.loads((ROOT / "results" / "rank_check.json").read_text()))
+    emit({"phase": "simulate", **res})
+    rhos = [res[k] for k in ("spearman_rho_dram_vs_effective", "spearman_rho_l2l1_vs_effective")]
+    if res["lbm_configs"] < 12 or not all(math.isfinite(x) for x in rhos):
+        fail(f"simulate: {res['lbm_configs']} LBM configurations, rho {rhos}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2426,6 +2553,8 @@ def main() -> int:
     trains = {"train_olmo": train, "train_rwkv": phase_train_rwkv()}
     sharded = phase_sharded(train, served["serve_rwkv"])
     phase_step_time(served, trains)
+    phase_dryrun(served, trains)
+    phase_simulate()
     for r in main_results:  # launches over every main path that runs the kernel
         r["launches_by_path"] = {OWN_PATH[r["name"]]: r["launches"]}
         if explored["launches"][r["name"]]:

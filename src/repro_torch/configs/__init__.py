@@ -5,7 +5,7 @@ are.
 """
 from __future__ import annotations
 
-from .base import SHAPES, ArchConfig, MoEConfig, ShapeConfig, shape_applicable  # noqa: F401
+from .base import SHAPES, ArchConfig, MoEConfig, ShapeConfig, input_specs, shape_applicable  # noqa: F401
 
 
 def get_arch(name: str) -> ArchConfig:

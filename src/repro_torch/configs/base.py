@@ -2,17 +2,21 @@
 
 One ``ArchConfig`` per assigned architecture (exact published dims) plus a
 ``smoke()`` reduction of the same family for CPU tests.  ``ShapeConfig`` describes
-the four assigned input shapes.
+the four assigned input shapes; ``input_specs()`` produces stand-ins on the
+meta device for the dry-run (no allocation).
 
 Counterpart of ``repro.configs.base``, copied as it is (the tests hold the two
-equal) except for ``input_specs``, the dry run's stand-ins, which waits for
-the port of the dry run (ROADMAP Queue 1 item 7b).
+equal); ``input_specs`` gives meta tensors where the JAX package gives
+``jax.ShapeDtypeStruct``s, with the same keys, shapes and dtypes
+(``tests/test_torch_dryrun.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -160,3 +164,21 @@ def shape_applicable(arch: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
         )
     return True, ""
 
+
+def input_specs(
+    arch: ArchConfig, shape: ShapeConfig, dtype=torch.int32
+) -> dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins for every model input of this cell."""
+    B, S = shape.global_batch, shape.seq_len
+    specs: dict[str, torch.Tensor] = {}
+    if shape.is_train or shape.kind == "prefill":
+        specs["tokens"] = torch.empty((B, S), dtype=torch.int32, device="meta")
+        if shape.is_train:
+            specs["labels"] = torch.empty((B, S), dtype=torch.int32, device="meta")
+    else:  # decode: one new token against a cache of length S
+        specs["tokens"] = torch.empty((B, 1), dtype=torch.int32, device="meta")
+    if arch.frontend != "none" and shape.kind != "decode":
+        specs["frontend_embeds"] = torch.empty(
+            (B, arch.n_frontend_tokens, arch.frontend_dim), dtype=torch.bfloat16, device="meta"
+        )
+    return specs

@@ -20,8 +20,6 @@ from typing import Callable, Sequence
 
 import numpy as np
 
-from ..frontend.ir import ir_fingerprint
-from ..frontend.lower import from_kernel_spec
 from .address import KernelSpec
 from .capacity import CapacityFits
 from .estimator import VolumeEstimate, estimate_many
@@ -54,6 +52,9 @@ def rank_configs(
     so the order never depends on how the configurations were listed.
     ``fits=None`` uses ``machine.fits``.
     """
+    from ..frontend.ir import ir_fingerprint  # deferred: the frontend imports core
+    from ..frontend.lower import from_kernel_spec
+
     specs = [build(**cfg) for cfg in configs]
     ests = estimate_many(specs, machine, fits, method=method)
     keyed = [

@@ -1,2 +1,2 @@
 """Data pipeline: counterpart of ``repro.data``."""
-from .pipeline import SyntheticTokenDataset, to_device, to_mesh  # noqa: F401
+from .pipeline import ShardedLoader, SyntheticTokenDataset, to_device, to_mesh  # noqa: F401

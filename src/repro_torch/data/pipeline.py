@@ -10,9 +10,14 @@ follow a skewed (Zipf-ish) distribution with a simple Markov overlay.
 builds the whole batch from the step's seed and :func:`to_mesh` lays it
 out by its specs (the batch split over the dp axes, ``Shard(0)``), as
 ``jax.device_put`` of the global batch does in the JAX package's
-``ShardedLoader``.
+``ShardedLoader``.  :class:`ShardedLoader` builds the host batches ahead on
+a thread and places each with one of the two; the trainer, as the JAX
+package's, builds its batches inline instead.
 """
 from __future__ import annotations
+
+import queue
+import threading
 
 import numpy as np
 import torch
@@ -75,3 +80,58 @@ def to_mesh(batch: dict[str, np.ndarray], mesh, specs: dict) -> dict:
     from ..train.sharding import place
 
     return {k: place(t, mesh, specs[k]) for k, t in to_device(batch, mesh.device_type).items()}
+
+
+class ShardedLoader:
+    """Places host batches on ``device``, or onto ``mesh`` by ``specs``
+    (``train.sharding.batch_pspecs``), prefetching ``depth`` steps ahead on
+    a background thread.  ``next(loader)`` gives ``(step, batch)`` from
+    ``start_step`` on; :meth:`stop` ends the thread.
+
+    Counterpart of ``repro.data.ShardedLoader``: the thread builds the host
+    batches (numpy, from the step's seed) and the caller's thread places
+    each one as it takes it."""
+
+    def __init__(self, dataset, device=None, mesh=None, specs: dict | None = None,
+                 start_step: int = 0, depth: int = 2):
+        from ..device import resolve_device
+
+        if mesh is not None and specs is None:
+            raise ValueError("a mesh needs the specs its batches are laid out by")
+        self.dataset = dataset
+        self.mesh = mesh
+        self.specs = specs
+        self.device = None if mesh is not None else resolve_device(device)
+        self.depth = depth
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._step = start_step
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _place(self, host_batch):
+        if self.mesh is not None:
+            return to_mesh(host_batch, self.mesh, self.specs)
+        return to_device(host_batch, self.device)
+
+    def _worker(self):
+        step = self._step
+        while not self._stop.is_set():
+            batch = self.dataset.batch(step)
+            try:
+                self._q.put((step, batch), timeout=0.5)
+                step += 1
+            except queue.Full:
+                continue
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        step, batch = self._q.get()
+        return step, self._place(batch)
+
+    def stop(self, timeout: float = 5.0) -> None:
+        """Ends the prefetch thread (it stops within its 0.5 s put timeout)."""
+        self._stop.set()
+        self._thread.join(timeout)

@@ -16,13 +16,27 @@ the hand-written backward (``csrc/flash_attention_bwd.cu``,
 :func:`flash_attention_bwd_cuda`).  The output therefore always carries a
 ``grad_fn`` when an input requires grad.  On the CPU autograd runs through
 the plain version, whose autograd is also the backward's plain version.
+
+Fake tensors.  Each launch goes through a ``torch.library`` custom op
+(``repro_torch::flash_attention_fwd``, ``repro_torch::flash_attention_bwd``)
+whose implementation is the launch itself.  A fake tensor (a dry run's
+trace, ``repro_torch.launch.dryrun``), on either device, takes the kernel's
+path and reaches the op's fake implementation: the outputs keep the shapes
+and dtypes the wrapper gives them, nothing is built or launched, the launch
+counters stay where they are, and ``torch.utils.flop_counter`` counts the
+kernel's own work (:func:`attention_flops`): 4·D flops a (query, key) pair
+forward, and backward 20·D in bf16 (P and dS in two bf16 halves) or 10·D
+in f32, over the causal pairs where the mask is on.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from ... import _build
 from .ref import mha_plain
@@ -98,9 +112,10 @@ def flash_attention_cuda(
     CPU the tile need only divide S, as in the JAX package: the plain
     version does not tile.  On the card it must be compiled."""
     _check(q, k, v, block_q, block_kv)
-    if q.device.type == "cpu":
+    fake = is_fake(q)
+    if q.device.type == "cpu" and not fake:
         return mha_plain(q, k, v, causal)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not fake:
         raise ValueError(f"flash_attention_cuda takes CPU or CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention_cuda takes f32 or bf16, got {q.dtype}")
@@ -121,6 +136,13 @@ def _launch_forward(q, k, v, out, lse, out_lo, causal: bool, block_q: int, block
     """Launches the forward on checked CUDA tensors into ``out`` and, where
     given, each row's log-sum-exp into ``lse`` (B, Hq, S) f32 and, for bf16,
     the output's rounding error ``bf16(o - out)`` into ``out_lo``."""
+    torch.ops.repro_torch.flash_attention_fwd(q, k, v, out, lse, out_lo, causal, block_q, block_kv)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=("out", "lse", "out_lo"))
+def _forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                lse: Optional[torch.Tensor], out_lo: Optional[torch.Tensor], causal: bool,
+                block_q: int, block_kv: int) -> None:
     b, hq, s, d = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -133,6 +155,25 @@ def _launch_forward(q, k, v, out, lse, out_lo, causal: bool, block_q: int, block
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err} "
                            f"(tile ({block_q}, {block_kv}), head dim {d})")
     flash_attention_cuda.launches += 1
+
+
+@_forward_op.register_fake
+def _forward_fake(q, k, v, out, lse, out_lo, causal, block_q, block_kv) -> None:
+    return None  # the caller allocated the outputs; nothing is launched
+
+
+def attention_flops(shape, causal: bool, per_pair: int) -> int:
+    """``per_pair`` times D flops for every (query, key) pair the kernel
+    computes of q's ``shape`` (B, Hq, S, D): S (S + 1) / 2 pairs a row
+    causal, S * S without the mask."""
+    b, hq, s, d = shape
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return per_pair * d * pairs * b * hq
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _forward_flops(q, k, v, out, lse, out_lo, causal, *args, out_shape=None, **kwargs) -> int:
+    return attention_flops(q, causal, 4)
 
 
 flash_attention_cuda.launches = 0
@@ -179,12 +220,13 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool = True, out_l
         raise ValueError(f"out, out_lo and dout must be {tuple(q.shape)} and lse {tuple(q.shape[:3])}, got "
                          f"{tuple(out.shape)}, {None if out_lo is None else tuple(out_lo.shape)}, "
                          f"{tuple(dout.shape)}, {tuple(lse.shape)}")
-    if q.device.type == "cpu":
+    fake = is_fake(q)
+    if q.device.type == "cpu" and not fake:
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             return torch.autograd.grad(mha_plain(*leaves, causal), leaves, dout)
     given = (q, k, v, out, lse, dout) + (() if out_lo is None else (out_lo,))
-    if q.device.type != "cuda" or any(t.device != q.device for t in given):
+    if (q.device.type != "cuda" and not fake) or any(t.device != q.device for t in given):
         raise ValueError(f"flash_attention_bwd_cuda takes CPU or CUDA tensors on one device, got {q.device}")
     if (q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in (out, dout))
             or lse.dtype != torch.float32 or (out_lo is not None and out_lo.dtype != torch.bfloat16)):
@@ -206,6 +248,13 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool = True, out_l
 def _launch_backward(q, k, v, out, out_lo, lse, dout, dq, dk, dv, delta, causal: bool) -> None:
     """Launches the backward's three kernels (D, then dK and dV, then dQ) on
     checked CUDA tensors; ``delta`` (B, Hq, S) f32 is their scratch."""
+    torch.ops.repro_torch.flash_attention_bwd(q, k, v, out, out_lo, lse, dout, dq, dk, dv, delta, causal)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=("dq", "dk", "dv", "delta"))
+def _backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                 out_lo: Optional[torch.Tensor], lse: torch.Tensor, dout: torch.Tensor, dq: torch.Tensor,
+                 dk: torch.Tensor, dv: torch.Tensor, delta: torch.Tensor, causal: bool) -> None:
     b, hq, s, d = q.shape
     ptrs = [None if t is None else t.data_ptr() for t in (q, k, v, out, out_lo, lse, dout, dq, dk, dv, delta)]
     with torch.cuda.device(q.device):
@@ -216,6 +265,17 @@ def _launch_backward(q, k, v, out, out_lo, lse, dout, dq, dk, dv, delta, causal:
     if err:
         raise RuntimeError(f"flash_attention backward launch failed: CUDA error {err} (head dim {d})")
     flash_attention_bwd_cuda.launches += 1
+
+
+@_backward_op.register_fake
+def _backward_fake(q, k, v, out, out_lo, lse, dout, dq, dk, dv, delta, causal) -> None:
+    return None
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd, get_raw=True)
+def _backward_flops(q, k, v, out, out_lo, lse, dout, dq, dk, dv, delta, causal, *args, out_val=None,
+                    **kwargs) -> int:
+    return attention_flops(tuple(q.shape), causal, 20 if q.dtype == torch.bfloat16 else 10)
 
 
 flash_attention_bwd_cuda.launches = 0

@@ -17,13 +17,26 @@ writes the state at each chunk's start, and its backward launches the
 hand-written backward (``csrc/wkv_bwd.cu``, :func:`wkv_bwd_cuda`), which
 the JAX package has no kernel for (it differentiates its scan).  On the CPU
 autograd runs through the plain version.
+
+Fake tensors.  Each launch goes through a ``torch.library`` custom op
+(``repro_torch::wkv_fwd``, ``repro_torch::wkv_bwd``) whose implementation
+is the launch itself.  A fake tensor (a dry run's trace,
+``repro_torch.launch.dryrun``), on either device, takes the kernel's path
+and reaches the op's fake implementation: the outputs keep the shapes and
+dtypes the wrapper gives them, nothing is built or launched, the launch
+counters stay where they are, and ``torch.utils.flop_counter`` counts the
+kernel's own work (:func:`wkv_flops`): 6·K² flops a token and head forward,
+with or without the chunk-start states, and twice that backward.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from ... import _build
 from .ref import wkv_bwd_plain, wkv_plain
@@ -74,8 +87,9 @@ def _check(r, k, v, wlog, u, s0) -> None:
 
 
 def _check_cuda(name: str, given: tuple, chunk: int, kd: int) -> None:
-    """What the kernels take: CUDA, f32, a compiled (chunk, K), contiguous."""
-    if given[0].device.type != "cuda":
+    """What the kernels take: CUDA (or fake), f32, a compiled (chunk, K),
+    contiguous."""
+    if given[0].device.type != "cuda" and not is_fake(given[0]):
         raise ValueError(f"{name} takes CPU or CUDA tensors, got {given[0].device}")
     if any(t.dtype != torch.float32 for t in given):
         raise TypeError(f"{name} takes f32 tensors, got {sorted({str(t.dtype) for t in given})}")
@@ -95,7 +109,7 @@ def wkv_cuda(r, k, v, wlog, u, chunk: int = 64, s0=None) -> tuple[torch.Tensor, 
     bh, seq, kd = r.shape
     if seq % chunk:
         raise ValueError(f"seq {seq} not divisible by chunk {chunk}")
-    if r.device.type == "cpu":
+    if r.device.type == "cpu" and not is_fake(r):
         return wkv_plain(r, k, v, wlog, u, s0)
     given = (r, k, v, wlog, u) + (() if s0 is None else (s0,))
     _check_cuda("wkv_cuda", given, chunk, kd)
@@ -111,6 +125,13 @@ def _launch_forward(r, k, v, wlog, u, s0, out, state, states, chunk: int) -> Non
     """Launches the forward on checked CUDA tensors into ``out``, the final
     ``state`` and, where given, ``states`` (BH, S / chunk, K, K): the state
     at each chunk's start."""
+    torch.ops.repro_torch.wkv_fwd(r, k, v, wlog, u, s0, out, state, states, chunk)
+
+
+@torch.library.custom_op("repro_torch::wkv_fwd", mutates_args=("out", "state", "states"))
+def _forward_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, wlog: torch.Tensor, u: torch.Tensor,
+                s0: Optional[torch.Tensor], out: torch.Tensor, state: torch.Tensor,
+                states: Optional[torch.Tensor], chunk: int) -> None:
     bh, seq, kd = r.shape
     u_rows = 1 if u.dim() == 1 else u.shape[0]
     ptrs = [None if t is None else t.data_ptr() for t in (s0, out, state, states)]
@@ -123,6 +144,23 @@ def _launch_forward(r, k, v, wlog, u, s0, out, state, states, chunk: int) -> Non
     if err:
         raise RuntimeError(f"wkv launch failed: CUDA error {err} (chunk {chunk}, K {kd})")
     wkv_cuda.launches += 1
+
+
+@_forward_op.register_fake
+def _forward_fake(r, k, v, wlog, u, s0, out, state, states, chunk) -> None:
+    return None  # the caller allocated the outputs; nothing is launched
+
+
+def wkv_flops(shape, per_token: int) -> int:
+    """``per_token`` times K² flops for every token of every row of r's
+    ``shape`` (BH, S, K)."""
+    bh, seq, kd = shape
+    return per_token * kd * kd * bh * seq
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv_fwd)
+def _forward_flops(r, *args, out_shape=None, **kwargs) -> int:
+    return wkv_flops(r, 6)
 
 
 wkv_cuda.launches = 0
@@ -174,7 +212,7 @@ def wkv_bwd_cuda(r, k, v, wlog, u, dout=None, ds=None, s0=None, chunk: int = 16,
         raise ValueError(f"dout must be {tuple(r.shape)}, got {tuple(dout.shape)}")
     if ds is not None and ds.shape != (bh, kd, kd):
         raise ValueError(f"ds must be {(bh, kd, kd)}, got {tuple(ds.shape)}")
-    if r.device.type == "cpu":
+    if r.device.type == "cpu" and not is_fake(r):
         return wkv_bwd_plain(r, k, v, wlog, u, dout, ds, s0, chunk)
     if states is None:
         raise ValueError("wkv_bwd_cuda on the card reads the forward's chunk-start states")
@@ -191,6 +229,22 @@ def wkv_bwd_cuda(r, k, v, wlog, u, dout=None, ds=None, s0=None, chunk: int = 16,
     ds0 = torch.empty((bh, kd, kd), dtype=torch.float32, device=r.device)
     split = kd // BWD_ROWS  # dv's shares, summed by the launch's second kernel where K > 16
     scratch = torch.empty((split, bh, seq, kd), dtype=torch.float32, device=r.device) if split > 1 else None
+    torch.ops.repro_torch.wkv_bwd(r, k, v, wlog, u, dout, ds, states, dr, dk, dv, dwlog, du_rows, ds0,
+                                  scratch, chunk)
+    du = du_rows.reshape(-1, *u.reshape(-1, kd).shape).sum(0).reshape(u.shape)
+    return dr, dk, dv, dwlog, du, ds0
+
+
+wkv_bwd_cuda.launches = 0
+
+
+@torch.library.custom_op("repro_torch::wkv_bwd",
+                         mutates_args=("dr", "dk", "dv", "dwlog", "du_rows", "ds0", "scratch"))
+def _backward_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, wlog: torch.Tensor, u: torch.Tensor,
+                 dout: torch.Tensor, ds: Optional[torch.Tensor], states: torch.Tensor, dr: torch.Tensor,
+                 dk: torch.Tensor, dv: torch.Tensor, dwlog: torch.Tensor, du_rows: torch.Tensor,
+                 ds0: torch.Tensor, scratch: Optional[torch.Tensor], chunk: int) -> None:
+    bh, seq, kd = r.shape
     u_rows = 1 if u.dim() == 1 else u.shape[0]
     ptrs = [None if t is None else t.data_ptr()
             for t in (dout, ds, states, dr, dk, dv, dwlog, du_rows, ds0, scratch)]
@@ -203,11 +257,17 @@ def wkv_bwd_cuda(r, k, v, wlog, u, dout=None, ds=None, s0=None, chunk: int = 16,
     if err:
         raise RuntimeError(f"wkv backward launch failed: CUDA error {err} (chunk {chunk}, K {kd})")
     wkv_bwd_cuda.launches += 1
-    du = du_rows.reshape(-1, *u.reshape(-1, kd).shape).sum(0).reshape(u.shape)
-    return dr, dk, dv, dwlog, du, ds0
 
 
-wkv_bwd_cuda.launches = 0
+@_backward_op.register_fake
+def _backward_fake(r, k, v, wlog, u, dout, ds, states, dr, dk, dv, dwlog, du_rows, ds0, scratch,
+                   chunk) -> None:
+    return None
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv_bwd)
+def _backward_flops(r, *args, out_shape=None, **kwargs) -> int:
+    return wkv_flops(r, 12)
 
 
 def kernel_attributes(chunk: int, kd: int) -> dict:

@@ -33,11 +33,12 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 from ..configs.base import ArchConfig
 from ..kernels.attention import flash_attention
 from .params import ParamDef
-from .shardctx import constrain, is_dtensor, kernel_placements, on_mesh, shard_local
+from .shardctx import constrain, is_dtensor, kernel_placements, merge_heads, on_mesh, shard_local, unflatten
 
 Params = Mapping[str, torch.Tensor]
 
@@ -101,9 +102,11 @@ def rope_freqs(half: int, theta: float, device: torch.device) -> torch.Tensor:
     """``1 / theta^(i / half)``, i < half, computed in numpy f32 exactly as
     the JAX package computes them, and copied to ``device`` once: a copy
     from host memory in every call would make the host wait for the card
-    twice a layer."""
+    twice a layer.  Always a real tensor, also when first asked for under a
+    fake-tensor trace (the dry run), since the cache outlives the trace."""
     freqs = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
-    return torch.from_numpy(freqs).to(device)
+    with unset_fake_temporarily():
+        return torch.from_numpy(freqs).to(device)
 
 
 def rope(x, positions, theta: float = 10000.0):
@@ -177,13 +180,13 @@ def attention_block(
     B, S, d = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     cdt = x.dtype
-    q = constrain((x @ p["wq"].to(cdt)).reshape(B, S, H, hd), ("dp", None, "tp", None))
-    k = constrain((x @ p["wk"].to(cdt)).reshape(B, S, Hkv, hd), ("dp", None, "tp", None))
-    v = constrain((x @ p["wv"].to(cdt)).reshape(B, S, Hkv, hd), ("dp", None, "tp", None))
+    q = constrain(unflatten(x @ p["wq"].to(cdt), -1, (H, hd)), ("dp", None, "tp", None))
+    k = constrain(unflatten(x @ p["wk"].to(cdt), -1, (Hkv, hd)), ("dp", None, "tp", None))
+    v = constrain(unflatten(x @ p["wv"].to(cdt), -1, (Hkv, hd)), ("dp", None, "tp", None))
     if cfg.qkv_bias:
-        q = q + p["bq"].to(cdt).reshape(H, hd)
-        k = k + p["bk"].to(cdt).reshape(Hkv, hd)
-        v = v + p["bv"].to(cdt).reshape(Hkv, hd)
+        q = q + unflatten(p["bq"].to(cdt), -1, (H, hd))
+        k = k + unflatten(p["bk"].to(cdt), -1, (Hkv, hd))
+        v = v + unflatten(p["bv"].to(cdt), -1, (Hkv, hd))
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     new_cache = None
@@ -199,7 +202,7 @@ def attention_block(
             out = attention(q, k, v)
         else:
             out = _cached_attention(q, ck, cv, idx)
-    y = out.reshape(B, S, H * hd) @ p["wo"].to(cdt)
+    y = merge_heads(out) @ p["wo"].to(cdt)
     return constrain(y, ("dp", None, None)), new_cache
 
 
@@ -210,7 +213,7 @@ def _cached_attention(q, ck, cv, cache_len: int):
     T, Hkv = ck.shape[1], ck.shape[2]
     G = H // Hkv
     scale = 1.0 / np.sqrt(hd)
-    qg = q.reshape(B, S, Hkv, G, hd)
+    qg = unflatten(q, 2, (Hkv, G))
     scores = torch.einsum("bchgd,bthd->bhgct", qg.float(), ck.float()) * scale
     qpos = on_mesh(cache_len + torch.arange(S, device=q.device)[:, None], q)
     kpos = on_mesh(torch.arange(T, device=q.device)[None, :], q)
@@ -288,9 +291,23 @@ def moe_block(cfg: ArchConfig, p: Params, x):
 
 def top_k(x, k: int):
     """(values, indices) of the ``k`` largest entries along the last axis,
-    equal values lower index first, as ``jax.lax.top_k`` orders them."""
+    equal values lower index first, as ``jax.lax.top_k`` orders them.  On a
+    DTensor the values are gathered at the indices, the same numbers: the
+    backward of ``sort`` scatters into a plain tensor on some PyTorch
+    versions, which DTensor refuses."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    if is_dtensor(x):
+        return x.gather(-1, idx[..., :k]), idx[..., :k]
     return vals[..., :k], idx[..., :k]
+
+
+def one_hot(idx, n: int):
+    """``F.one_hot(idx, n)``; on a DTensor, the same 0/1 values by a
+    comparison with ``arange(n)`` (DTensor's ``one_hot`` scatters into a
+    plain tensor on some PyTorch versions, which DTensor refuses)."""
+    if not is_dtensor(idx):
+        return F.one_hot(idx, n)
+    return (idx[..., None] == on_mesh(torch.arange(n, device=idx.device), idx)).long()
 
 
 def _moe_routed(cfg: ArchConfig, p: Params, x):
@@ -298,12 +315,16 @@ def _moe_routed(cfg: ArchConfig, p: Params, x):
     E, K = cfg.moe.n_experts, cfg.moe.top_k
     C = max(1, int(S * K * cfg.moe.capacity_factor / E))
     cdt = x.dtype
-    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)  # (B,S,E)
+    # on a mesh, the router's logits kept split over the batch alone: some
+    # PyTorch versions' DTensor splits S too and then cannot flatten (B, S)
+    # for the router's gradient
+    logits = constrain(x.float() @ p["router"].float(), ("dp", None, None))
+    probs = torch.softmax(logits, dim=-1)  # (B,S,E)
     gate_vals, gate_idx = top_k(probs, K)  # (B,S,K)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
     # load-balance auxiliary loss (Switch): E * sum_e f_e * p_e
     me = probs.mean(dim=(0, 1))
-    expert_sel = F.one_hot(gate_idx, E).float()  # (B,S,K,E)
+    expert_sel = one_hot(gate_idx, E).float()  # (B,S,K,E)
     fe = expert_sel.sum(2).mean(dim=(0, 1))
     aux = E * (me * fe).sum()
     # slot of each (token, k) within its expert: a count over (S, K), s-major
@@ -311,7 +332,7 @@ def _moe_routed(cfg: ArchConfig, p: Params, x):
     pos = ((cum - expert_sel) * expert_sel).sum(-1)  # (B,S,K)
     keep = (pos < C).float()
     gate_vals = gate_vals * keep
-    pos_oh = F.one_hot(pos.long().clamp_max(C - 1), C).float() * keep[..., None]
+    pos_oh = one_hot(pos.long().clamp_max(C - 1), C).float() * keep[..., None]
     dispatch = torch.einsum("bske,bskc->bsec", expert_sel, pos_oh).to(cdt)  # (B,S,E,C)
     combine = torch.einsum("bsk,bske,bskc->bsec", gate_vals, expert_sel, pos_oh)  # f32
     xe = constrain(torch.einsum("bsec,bsd->becd", dispatch, x), ("dp", "ep", None, None))  # (B,E,C,d)

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from .layers import rmsnorm
 from .params import ParamDef
-from .shardctx import on_mesh
+from .shardctx import is_dtensor, kernel_placements, merge_heads, on_mesh, shard_local, unflatten
 
 CONV_WIDTH = 4
 SSM_CHUNK = 64
@@ -64,6 +64,26 @@ def _causal_conv(x, w, b, state=None):
     xe = torch.cat([state, x], dim=1)  # (B, S + W - 1, C)
     y = sum(xe[:, i:i + S, :] * w[i][None, None, :] for i in range(W))
     return F.silu(y + b[None, None, :]), xe[:, -(W - 1):, :]
+
+
+def ssd_chunked(xh, a_log, B_, C_, h0, chunk: int):
+    """:func:`_ssd_chunked`; DTensors go to it as their local shards, as
+    the kernels do (``shardctx.shard_local``): the batch over the dp axes
+    and the heads over tp where they divide, B and C whole on each device
+    for its rows.  Each device runs the one-device scan on its rows, so no
+    op of the scan needs a DTensor rule (``flip``, the backward of
+    ``cumsum``, has none on some PyTorch versions)."""
+    if not is_dtensor(xh):
+        return _ssd_chunked(xh, a_log, B_, C_, h0, chunk)
+    batch, _, heads, _ = xh.shape
+    mesh = xh.device_mesh
+
+    def on(ndim: int, head_dim: int | None):
+        return kernel_placements(mesh, ndim, (0, batch), (heads,) if head_dim is not None else (), head_dim or 0)
+
+    x4, h4 = on(4, 2), on(4, 1)
+    return shard_local(lambda *a: _ssd_chunked(*a, chunk), (xh, a_log, B_, C_, h0),
+                       (x4, on(3, 2), on(3, None), on(3, None), h4), (x4, h4))
 
 
 def _ssd_chunked(xh, a_log, B_, C_, h0, chunk: int):
@@ -120,7 +140,7 @@ def mamba2_block(cfg: ArchConfig, p: Mapping[str, torch.Tensor], x, state: Optio
     xs, B_, C_ = torch.split(conv_out, [d_in, N, N], dim=-1)
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
     a_log = -dt * torch.exp(p["A_log"].float())  # (B, S, H)
-    xh = xs.reshape(B, S, H, P)
+    xh = unflatten(xs, -1, (H, P))
     xh_dt = xh.float() * dt[..., None]
     h0 = state["h"].float() if state is not None else x.new_zeros((B, H, N, P), dtype=torch.float32)
     if S == 1:  # decode: one step of the recurrence
@@ -128,8 +148,8 @@ def mamba2_block(cfg: ArchConfig, p: Mapping[str, torch.Tensor], x, state: Optio
         h_final = h0 * a[:, :, None, None] + torch.einsum("bn,bhp->bhnp", B_[:, 0].float(), xh_dt[:, 0])
         y = torch.einsum("bn,bhnp->bhp", C_[:, 0].float(), h_final)[:, None]
     else:
-        y, h_final = _ssd_chunked(xh_dt, a_log, B_, C_, h0, SSM_CHUNK)
+        y, h_final = ssd_chunked(xh_dt, a_log, B_, C_, h0, SSM_CHUNK)
     y = y + p["D"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(B, S, d_in).to(cdt) * F.silu(z)
+    y = merge_heads(y).to(cdt) * F.silu(z)
     out = rmsnorm(y, p["norm_scale"]) @ p["out_proj"].to(cdt)
     return out, {"h": h_final, "conv": new_conv}

@@ -30,7 +30,7 @@ from ..kernels.wkv import wkv
 from ..kernels.wkv.kernel import CHUNKS
 from .layers import layernorm, rmsnorm
 from .params import ParamDef
-from .shardctx import is_dtensor, kernel_placements, on_mesh, shard_local
+from .shardctx import constrain, is_dtensor, kernel_placements, merge_heads, on_mesh, shard_local, unflatten
 
 DECAY_LORA = 64
 # S is padded to a multiple of the shortest compiled chunk, the one
@@ -131,23 +131,26 @@ def rwkv6_block(cfg: ArchConfig, p: Mapping, x, state: Optional[dict] = None):
     def mix(mu):
         return xa + (xs - xa) * mu.to(cdt)[None, None, :]
 
-    r = (mix(tm["mu_r"]) @ tm["wr"].to(cdt)).reshape(B, S, H, K)
-    k = (mix(tm["mu_k"]) @ tm["wk"].to(cdt)).reshape(B, S, H, K)
-    v = (mix(tm["mu_v"]) @ tm["wv"].to(cdt)).reshape(B, S, H, K)
+    r = unflatten(mix(tm["mu_r"]) @ tm["wr"].to(cdt), -1, (H, K))
+    k = unflatten(mix(tm["mu_k"]) @ tm["wk"].to(cdt), -1, (H, K))
+    v = unflatten(mix(tm["mu_v"]) @ tm["wv"].to(cdt), -1, (H, K))
     g = F.silu(mix(tm["mu_g"]) @ tm["wg"].to(cdt))
     wx = mix(tm["mu_w"]).float()
-    wlora = torch.tanh(wx @ tm["w_lora_a"].float()) @ tm["w_lora_b"].float()
+    # on a mesh, the LoRA's output laid out as the activations before w_base
+    # joins it (a partial sum there cannot meet w_base's split on every
+    # PyTorch version's DTensor)
+    wlora = constrain(torch.tanh(wx @ tm["w_lora_a"].float()) @ tm["w_lora_b"].float(), ("dp", None, "tp"))
     # data-dependent decay: w = exp(-exp(w_base + lora)), clamped for stability
     wlog = -torch.exp(torch.clamp(tm["w_base"].float() + wlora, -8.0, 4.0))
-    wlog = wlog.reshape(B, S, H, K)
-    u = tm["u_bonus"].float().reshape(H, K)
+    wlog = unflatten(wlog, -1, (H, K))
+    u = unflatten(tm["u_bonus"].float(), -1, (H, K))
     s0 = (
         state["s"].float()
         if state is not None
         else on_mesh(torch.zeros((B, H, K, K), dtype=torch.float32, device=x.device), x)
     )
     out, s_final = wkv_heads(r.float(), k.float(), v.float(), wlog, u, s0)
-    out = out.reshape(B, S, d)
+    out = merge_heads(out)
     out = rmsnorm(out.to(cdt), tm["ln_scale"]) * g
     y_tm = out @ tm["wo"].to(cdt)
 

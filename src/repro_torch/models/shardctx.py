@@ -24,6 +24,8 @@ from __future__ import annotations
 import contextlib
 import contextvars
 
+import torch
+
 from .params import P, ShardingRules
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar("shard_ctx", default=None)
@@ -86,6 +88,52 @@ def constrain(x, logical: tuple):
     from ..train.sharding import to_placements
 
     return x.redistribute(mesh, to_placements(mesh, spec))
+
+
+def unflatten(x, dim: int, sizes: tuple[int, int]):
+    """``x`` with dim ``dim`` split into ``sizes``.  A DTensor whose dim
+    ``dim`` is split over mesh dims whose product ``sizes[0]`` does not
+    divide (Qwen2.5-14B's 40 heads, or 8 kv heads, over a 16-wide tp axis)
+    is first made whole over those dims: DTensor refuses to unflatten such
+    a split, which GSPMD regathers in the JAX package."""
+    dim = dim % x.dim()
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+
+        pl = list(x.placements)
+        split = [i for i, p in enumerate(pl) if isinstance(p, Shard) and p.dim == dim]
+        n = 1
+        for i in split:
+            n *= x.device_mesh.size(i)
+        if sizes[0] % n:
+            for i in split:
+                pl[i] = Replicate()
+            x = x.redistribute(x.device_mesh, pl)
+    return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+
+
+class _MergeHeads(torch.autograd.Function):
+    """The reshape of :func:`merge_heads`, with the gradient split back by
+    :func:`unflatten`."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.heads, ctx.head_dim = x.shape[-2], x.shape[-1]
+        return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        return unflatten(g, -1, (ctx.heads, ctx.head_dim))
+
+
+def merge_heads(x):
+    """``x`` (..., heads, head_dim) as (..., heads * head_dim).  On a
+    DTensor the gradient comes back through :func:`unflatten`, since the
+    backward of the reshape unflattens the gradient's last dim, which may
+    be split where the heads are not."""
+    if not is_dtensor(x):
+        return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    return _MergeHeads.apply(x)
 
 
 def on_mesh(t, like):

@@ -1,1 +1,2 @@
 """Serving: the batched engine over the model stack."""
+from .engine import ServeEngine  # noqa: F401

@@ -448,3 +448,50 @@ def test_smoke_rwkv6_trains_to_the_cpus_losses_on_the_card(cuda):
                 assert wkv_bwd_cuda.launches - nb == cfg.n_layers
                 assert wkv_cuda.launches - n == 2 * cfg.n_layers
     np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-4, atol=1e-4)
+
+
+def _launch_counts():
+    return (flash_attention_cuda.launches, flash_attention_bwd_cuda.launches, wkv_cuda.launches,
+            wkv_bwd_cuda.launches)
+
+
+def test_fake_tensors_take_the_kernel_path_and_only_real_ones_launch(cuda):
+    """Fake CUDA tensors (and the dry run's fake cells) reach the kernels'
+    ops, which count the kernels' flops and launch nothing; the same calls
+    on real tensors beside them launch and count."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun
+
+    def calls(q, r, u):
+        out = flash_attention_cuda(q, q, q)
+        wo, ws = wkv_cuda(r, r, r, r, u, chunk=16)
+        return torch.autograd.grad(out.float().sum() + wo.sum() + ws.sum(), [q, r])
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(1, 4, 128, 64, device=cuda, dtype=torch.bfloat16, generator=g).requires_grad_()
+    r = (-0.5 * torch.rand(8, 64, 64, device=cuda, generator=g)).requires_grad_()
+    u = torch.rand(64, device=cuda, generator=g)
+    before = _launch_counts()
+    dq, dr = calls(q, r, u)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launch_counts(), before)) == (1, 1, 1, 1)
+    assert torch.isfinite(dq.float()).all() and torch.isfinite(dr).all()
+
+    before = _launch_counts()
+    with FakeTensorMode():
+        fq = torch.empty(1, 4, 128, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+        fr = torch.empty(8, 64, 64, device=cuda, requires_grad=True)
+        with FlopCounterMode(display=False) as fc:
+            fdq, fdr = calls(fq, fr, torch.empty(64, device=cuda))
+        assert (fdq.shape, fdq.device.type, fdr.shape) == (fq.shape, "cuda", fr.shape)
+    counts = fc.get_flop_counts()["Global"]
+    pairs = 128 * 129 // 2
+    assert counts[torch.ops.repro_torch.flash_attention_fwd] == 4 * 64 * pairs * 4
+    assert counts[torch.ops.repro_torch.flash_attention_bwd] == 20 * 64 * pairs * 4
+    assert counts[torch.ops.repro_torch.wkv_fwd] == 6 * 64 * 64 * 8 * 64
+    assert counts[torch.ops.repro_torch.wkv_bwd] == 12 * 64 * 64 * 8 * 64
+    for arch in ("olmo-1b", "rwkv6-1.6b"):
+        assert dryrun.run_cell(arch, "train_4k", "single", "baseline", smoke=True)["status"] == "ok"
+    assert _launch_counts() == before

@@ -3,9 +3,11 @@
 * Importing every ``repro_torch`` module, ``chip_smoke.py``,
   ``benchmarks/torch_rank_check.py``, ``benchmarks/torch_ranking_host.py``,
   ``benchmarks/torch_step_time_check.py``,
-  ``benchmarks/torch_flash_bwd_turns.py`` or
-  ``benchmarks/torch_flash_bwd_drift.py`` loads no ``jax`` and nothing of
-  ``repro`` (checked in a fresh interpreter).
+  ``benchmarks/torch_flash_bwd_turns.py``,
+  ``benchmarks/torch_flash_bwd_drift.py`` or
+  ``benchmarks/torch_simulate_check.py`` loads no ``jax`` and nothing of
+  ``repro`` (checked in a fresh interpreter), and neither does a cell of
+  the dry run.
 * Without CUDA, the state-creating functions raise unless asked for the CPU,
   ``chip_smoke.py``, the rank check and the step-time check exit non-zero
   and print no result, and the CPU path
@@ -87,12 +89,14 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                  "repro_torch.explore.search.propose", "repro_torch.explore.search.convergence",
                  "repro_torch.analysis", "repro_torch.analysis.affine", "repro_torch.analysis.findings",
                  "repro_torch.analysis.fixtures", "repro_torch.analysis.passes", "repro_torch.analysis.perf",
-                 "repro_torch.obs.explain", "repro_torch.core.tpu_estimator", "repro_torch.frontend.pallas"):
+                 "repro_torch.obs.explain", "repro_torch.core.tpu_estimator", "repro_torch.frontend.pallas",
+                 "repro_torch.core.roofline", "repro_torch.core.gpu_roofline", "repro_torch.core.exactcount",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.variants"):
         assert name in res["modules"]
 
 
 @pytest.mark.parametrize("script", ["torch_rank_check", "torch_ranking_host", "torch_step_time_check",
-                                    "torch_flash_bwd_turns", "torch_flash_bwd_drift"])
+                                    "torch_flash_bwd_turns", "torch_flash_bwd_drift", "torch_simulate_check"])
 def test_paper_path_benchmarks_import_no_jax_and_no_repro(script):
     """``benchmarks/<script>.py``, imported alone."""
     probe = (f"import json, sys; sys.path.insert(0, 'benchmarks'); import {script}; "
@@ -103,6 +107,20 @@ def test_paper_path_benchmarks_import_no_jax_and_no_repro(script):
         capture_output=True, text=True, timeout=120, check=True,
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_the_dry_run_loads_no_jax_and_no_repro(tmp_path):
+    """A smoke cell of ``python -m repro_torch.launch.dryrun``, as
+    ``chip_smoke.py`` starts it, in a fresh interpreter."""
+    probe = ("import json, sys; from repro_torch.launch import dryrun; "
+             f"r = dryrun.main(['--arch', 'rwkv6-1.6b', '--shape', 'decode_32k', '--smoke', '--out', {str(tmp_path)!r}]); "
+             "print(json.dumps([r['status'], sorted(m for m in sys.modules "
+             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))]))")
+    out = subprocess.run(
+        [sys.executable, "-c", probe], env=_env(), cwd=ROOT,
+        capture_output=True, text=True, timeout=120, check=True,
+    )
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == ["ok", []]
 
 
 def test_rank_check_fails_without_cuda():
