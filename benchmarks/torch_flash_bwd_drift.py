@@ -71,7 +71,8 @@ def build(item: tuple[str, str]) -> tuple[str, object]:
     if not so.exists():
         cu = OUT / f"{name}.cu"
         cu.write_text(src)
-        done = subprocess.run([_build.toolkit_tool("nvcc"), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+        done = subprocess.run([_build.toolkit_tool("nvcc"), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so),
+                               str(cu)],
                               capture_output=True, text=True)
         if done.returncode:
             raise RuntimeError(f"nvcc failed on {name}:\n{done.stdout}{done.stderr}")

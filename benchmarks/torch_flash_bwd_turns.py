@@ -9,7 +9,8 @@ of ``src/repro_torch/csrc/flash_attention_bwd.cu`` ("current") and, with
 ``build/flash_bwd_turns/``, for instance
 ``git show HEAD~1:src/repro_torch/csrc/flash_attention_bwd.cu >
 build/flash_bwd_before.cu`` (made beforehand where the card's machine has a
-copy of the tree without ``.git``).  Both keep the C interface ``flash_attention_bwd_launch``.
+copy of the tree without ``.git``).  Both keep the C interface ``flash_attention_bwd_launch``;
+the earlier source may include the port's ``csrc/*.cuh`` headers.
 
 At OLMo-1B's (4, 16, 16, 4096, 128) and Qwen2.5-14B's (1, 40, 8, 2048, 128),
 bf16 causal, on the saved tensors of the port's forward (inputs from seed
@@ -49,6 +50,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import _build  # noqa: E402
 from repro_torch.kernels.attention import kernel as attn_kernel  # noqa: E402
+from repro_torch.kernels.attention import select_blocks  # noqa: E402
 
 OUT = ROOT / "build" / "flash_bwd_turns"
 SHAPES = ((4, 16, 16, 4096, 128), (1, 40, 8, 2048, 128))  # (B, Hq, Hkv, S, D): OLMo-1B, Qwen2.5-14B
@@ -75,7 +77,8 @@ def build_earlier(source: Path) -> ctypes.CDLL:
     if not so.exists():
         cu = OUT / "flash_attention_bwd_earlier.cu"
         cu.write_bytes(src)
-        done = subprocess.run([_build.toolkit_tool("nvcc"), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+        done = subprocess.run([_build.toolkit_tool("nvcc"), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so),
+                               str(cu)],
                               capture_output=True, text=True)
         if done.returncode:
             raise RuntimeError(f"nvcc failed on {source}:\n{done.stdout}{done.stderr}")
@@ -163,7 +166,7 @@ def main() -> int:
         dout = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         with torch.enable_grad():
-            out = attn_kernel.flash_attention_cuda(*leaves, True, 64, 64)
+            out = attn_kernel.flash_attention_cuda(*leaves, True, *select_blocks(b, hq, hkv, seq, d))
         sq, sk, sv, so, lse, out_lo = out.grad_fn.saved_tensors
         grads = {}
 

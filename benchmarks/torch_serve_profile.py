@@ -60,7 +60,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 REQUESTS, PROMPT_LEN, STEPS = SERVE_REQUESTS, SERVE_PROMPT_LEN, 8
 TRACE = ROOT / "build" / "serve_profile_trace.json"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-PORT_KERNELS = ("flash_tc_kernel", "flash_f32_kernel", "wkv_kernel", "wkv_bwd_")  # in the trace's kernel names
+PORT_KERNELS = ("flash_fwd_wgmma_kernel", "flash_f32_kernel", "wkv_kernel", "wkv_bwd_")  # in the trace's kernel names
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
               "cudaMemcpy", "cudaMemcpyAsync")
 

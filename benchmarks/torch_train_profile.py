@@ -72,10 +72,13 @@ COUNTERS = {"flash_launches": flash_attention_cuda, "flash_bwd_launches": flash_
 def device_ms_by_kind(prof, vocab: int) -> dict:
     """Device milliseconds by kind from ``key_averages`` grouped by input
     shape: self time for the products and casts, and the port's kernels by
-    name."""
+    name (not the ``repro_torch::`` ops that launch them, whose self device
+    time is the same kernels')."""
     out = dict.fromkeys(KINDS, 0.0)
     for e in prof.key_averages(group_by_input_shape=True):
         self_ms = e.self_device_time_total / 1e3
+        if e.key.startswith("repro_torch::"):
+            continue
         if e.key in PRODUCTS:
             head = any(vocab in shape for shape in e.input_shapes if isinstance(shape, list))
             out["head_f32" if head else "products_bf16"] += self_ms
@@ -83,7 +86,7 @@ def device_ms_by_kind(prof, vocab: int) -> dict:
             out["casts_copies"] += self_ms
         elif "flash_attention_bwd" in e.key or "flash_bwd_" in e.key:
             out["flash_backward"] += self_ms
-        elif "flash_tc_kernel" in e.key or "flash_f32_kernel" in e.key:
+        elif "flash_fwd_wgmma_kernel" in e.key or "flash_f32_kernel" in e.key:
             out["flash_forward"] += self_ms
         elif "wkv_bwd_" in e.key:
             out["wkv_backward"] += self_ms

@@ -20,17 +20,19 @@ Phases, one JSON line each:
    each; beside the IR's assumption for the two paper kernels) and the
    count of tensor-core instructions in each kernel's SASS (``cuobjdump
    -sass``): ``HMMA`` (``mma.sync``) and ``HGMMA`` (``wgmma``).  A bf16
-   flash forward instantiation or a head-dim-160 backward one without
-   ``HMMA``, or a backward one of Hopper's path
-   (``BWD_WGMMA_HEAD_DIMS``) without ``HGMMA``, fails the run;
+   flash forward instantiation (``flash_fwd_wgmma_kernel``, every bf16 tile
+   at every head dim it compiles) or a backward one of Hopper's path
+   (``BWD_WGMMA_HEAD_DIMS``) without ``HGMMA``, or a head-dim-160 backward
+   one without ``HMMA``, fails the run;
 3. check   — every kernel against its plain PyTorch version at small sizes:
    all 162 stencil configurations in f64 and a few in f32/bf16 on both
    stencil kernels (staged and direct), all 49 LBM configurations in f64
    and a few in f32; the stencil's yardstick ``conv3d`` on the interior;
    every compiled flash (tile, head dim, dtype), head dims 16, 32, 64, 112,
    128 and 160, at four head groupings,
-   causal and not, at S = 256, and every bf16 tile at S = 2048, D = 128,
-   (Hq, Hkv) = (10, 2), causal, where rows from 1024 on exist; every
+   causal and not, at S = 256 and in bf16 also at S = 96 (the last q and kv
+   tiles of Hopper's kernel reach past S), and every bf16 tile at S = 2048,
+   D = 128, (Hq, Hkv) = (10, 2), causal, where rows from 1024 on exist; every
    compiled WKV (chunk, K), output and final state, at S = 128 and at
    S = 1024 (64 chunks of 16, so the double buffer turns over many times).
    Every compiled WKV (chunk, K) again with a bonus per head and a random
@@ -63,7 +65,10 @@ Phases, one JSON line each:
    chunk at the main shape), each against its bound, and the kernel's
    median single launch, as the port's earlier times were taken
    (``ms_one_launch``, beside the attention and WKV kernels' times before
-   their redesign, ``pr12_ms``).  The stencil's staged and direct kernels
+   their redesign, ``pr12_ms``; attention also beside the ``mma.sync``
+   kernel that Hopper's replaced, ``pr26_ms``, with TFLOP/s at 4 D and at
+   6 D flops a pair, the design's bound at 6 D beside the 4 D one, and the
+   registers, spills and shared bytes of the tile it ran).  The stencil's staged and direct kernels
    are timed in turns (direct, staged, staged, direct), beside the staged
    block's shared memory, the card's blocks per SM for it and the
    estimator's wave.  The paper line also carries ``select_block``'s host
@@ -326,6 +331,7 @@ ORDER_REPS = 50  # the per-tile and per-chunk times that MEASURED_ORDER follows
 ATTN_SHAPE = (1, 40, 8, 4096, 128)  # (B, Hq, Hkv, S, D): one layer of configs/qwen2_5_14b.py
 ATTN_CHECK_HEADS = ((4, 4), (4, 2), (8, 1), (10, 2))
 ATTN_CHECK_SEQ = 256
+ATTN_CHECK_SEQS_BF16 = (256, 96)  # 96: Hopper's kernel's last q and kv tiles reach past S
 ATTN_LONG_CHECK = (10, 2, 2048, 128)  # (Hq, Hkv, S, D): rows from 1024 on, causal, bf16
 WKV_SHAPE = (64, 4096, 64)  # (BH, S, K): configs/rwkv6_1_6b.py, 32 heads of 64 at batch 2
 WKV_CHECK_SHAPES = ((3, 128), (5, 1024))  # (BH, S)
@@ -423,6 +429,9 @@ WKV_FLOPS_PER_TOKEN = 6  # times K^2 per head: the stepwise recurrence
 # redesign for Hopper (f32 scalar kernels; NVIDIA H100 80GB HBM3, 700 W),
 # shown beside each run's own; taken as ``time_one_launch_ms`` takes them
 PR12_MS = {"flash_attention": 6.5022, "wkv": 2.7553}
+# the bf16 flash forward's time at the main shape before its redesign for
+# Hopper, on the mma.sync kernel (NVIDIA H100 80GB HBM3, 700 W), as ``ms``
+PR26_MS = {"flash_attention": 0.9802}
 KERNELS = {  # name: (launch counter, CUDA source, TPU kernel it replaces)
     "stencil25": (st_kernel.stencil25_cuda, "src/repro_torch/csrc/stencil25.cu",
                   "src/repro/kernels/stencil25/kernel.py:24"),
@@ -553,7 +562,7 @@ def phase_build() -> dict:
         regs[f"lbm_d3q15 {str(dtype)[6:]}"] = lbm_kernel.kernel_attributes(dtype)
     for dtype in (torch.float32, torch.bfloat16):
         for d in attn_kernel.HEAD_DIMS:
-            for bq, bkv in attn_kernel.TILES:  # raises where the source lacks a listed tile
+            for bq, bkv in fwd_tiles(dtype, d):  # raises where the source lacks a listed tile
                 regs[f"flash_attention {str(dtype)[6:]} d{d} {bq}x{bkv}"] = \
                     attn_kernel.kernel_attributes(dtype, d, bq, bkv)
     for dtype in (torch.float32, torch.bfloat16):
@@ -583,29 +592,36 @@ def phase_build() -> dict:
                                  "lbm_d3q15": appspec.lbm_d3q15_ir((32, 4, 4)).regs_per_thread},
           "kernels": regs, "hmma": {n: sum(c.values()) for n, c in hmma.items()},
           "hgmma": {n: sum(c.values()) for n, c in hgmma.items()},
-          "hmma_flash_attention": hmma["flash_attention"], "hmma_flash_attention_bwd": hmma["flash_attention_bwd"],
+          "hgmma_flash_attention": hgmma["flash_attention"], "hmma_flash_attention_bwd": hmma["flash_attention_bwd"],
           "hgmma_flash_attention_bwd": hgmma["flash_attention_bwd"]})
-    missing = [f"flash_tc_kernel<{bq},{bkv},{d}>" for d in attn_kernel.HEAD_DIMS
-               for bq, bkv in attn_kernel.TILES
-               if not hmma["flash_attention"].get(f"flash_tc_kernel<{bq},{bkv},{d}>")]
-    missing += [f"{name}<{d}>" for d in attn_kernel.HEAD_DIMS if d not in attn_kernel.BWD_WGMMA_HEAD_DIMS
-                for name in ("flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel")
-                if not hmma["flash_attention_bwd"].get(f"{name}<{d}>")]
+    missing = [f"{name}<{d}>" for d in attn_kernel.HEAD_DIMS if d not in attn_kernel.BWD_WGMMA_HEAD_DIMS
+               for name in ("flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel")
+               if not hmma["flash_attention_bwd"].get(f"{name}<{d}>")]
     if missing:
         fail(f"bf16 flash instantiations without tensor-core instructions (HMMA): {missing}")
-    # the backward's Hopper path: wgmma in both kernels at each of its head dims
-    missing = [f"{name}<{d}>" for d in attn_kernel.BWD_WGMMA_HEAD_DIMS
-               for name in ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
-               if not hgmma["flash_attention_bwd"].get(f"{name}<{d}>")]
+    # Hopper's path: wgmma in every bf16 forward instantiation, and in both
+    # backward kernels at each of the backward's head dims
+    missing = [f"flash_fwd_wgmma_kernel<{d},{bkv}>" for d in attn_kernel.HEAD_DIMS
+               for _, bkv in fwd_tiles(torch.bfloat16, d)
+               if not hgmma["flash_attention"].get(f"flash_fwd_wgmma_kernel<{d},{bkv}>")]
+    missing += [f"{name}<{d}>" for d in attn_kernel.BWD_WGMMA_HEAD_DIMS
+                for name in ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
+                if not hgmma["flash_attention_bwd"].get(f"{name}<{d}>")]
     if missing:
-        fail(f"flash backward instantiations of Hopper's path without wgmma (HGMMA): {missing}")
+        fail(f"flash instantiations of Hopper's path without wgmma (HGMMA): {missing}")
     return probe_libs
+
+
+def fwd_tiles(dtype, d: int) -> list[tuple[int, int]]:
+    """The flash forward's tiles that the source compiles for ``dtype`` at
+    head dim ``d``."""
+    return [t for t in attn_kernel.TILES[dtype] if attn_kernel.compiled(*t, d, dtype)]
 
 
 def tensor_core_counts(lib: Path) -> dict[str, dict[str, int]]:
     """HMMA (``mma.sync``) and HGMMA (``wgmma``) instructions in the SASS of
     each kernel of a built library, by kernel and template arguments
-    (``flash_tc_kernel<64,64,128>``)."""
+    (``flash_fwd_wgmma_kernel<128,128>``)."""
     sass = subprocess.run([_build.toolkit_tool("cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, timeout=300, check=True).stdout
     counts = {}
@@ -616,9 +632,9 @@ def tensor_core_counts(lib: Path) -> dict[str, dict[str, int]]:
 
 
 def kernel_name(mangled: str) -> str:
-    """``flash_tc_kernel<64,64,128>`` for a kernel with integer template
+    """``flash_fwd_wgmma_kernel<128,128>`` for a kernel with integer template
     arguments: the last length-prefixed identifier that ends in ``_kernel``
-    (``15flash_tc_kernel``), then its ``Li<n>E`` arguments.  Any other name
+    (``22flash_fwd_wgmma_kernel``), then its ``Li<n>E`` arguments.  Any other name
     is returned as it is."""
     found = mangled
     for m in re.finditer(r"(?=(\d+)(\w+))", mangled):
@@ -683,34 +699,35 @@ def phase_check() -> None:
 
 def check_attention(gen: torch.Generator) -> dict:
     """Every compiled (tile, head dim, dtype), at four head groupings, causal
-    and not, against ``mha_plain`` at S = 256; bf16 also by ``ATTN_RULE``,
-    and every bf16 tile at ``ATTN_LONG_CHECK``."""
+    and not, against ``mha_plain`` at S = 256, bf16 also at S = 96 and by
+    ``ATTN_RULE``, and every bf16 tile at ``ATTN_LONG_CHECK``."""
     res = {}
     hq, hkv, seq, d = ATTN_LONG_CHECK
     q, k, v = (torch.randn((1, h, seq, d), generator=gen, device="cuda").to(torch.bfloat16)
                for h in (hq, hkv, hkv))
     plain = attention.mha_plain(q, k, v, True)
-    for bq, bkv in attn_kernel.TILES:
+    for bq, bkv in fwd_tiles(torch.bfloat16, d):
         out = attn_kernel.flash_attention_cuda(q, k, v, True, bq, bkv)
         res[f"flash_attention bfloat16 d{d} S{seq} {bq}x{bkv}"] = {
             "max_abs_err": max_err(out, plain), "tol": TOL[torch.bfloat16],
             "max_ratio": rule_ratio(out, plain, ATTN_RULE), "rule": rule_text(ATTN_RULE)}
     del q, k, v, plain
     for dtype in (torch.float32, torch.bfloat16):
+        seqs = ATTN_CHECK_SEQS_BF16 if dtype == torch.bfloat16 else (ATTN_CHECK_SEQ,)
         for d in attn_kernel.HEAD_DIMS:
             err = ratio = 0.0
-            for hq, hkv in ATTN_CHECK_HEADS:
-                q, k, v = (torch.randn((1, h, ATTN_CHECK_SEQ, d), generator=gen, device="cuda").to(dtype)
+            for (hq, hkv), s in itertools.product(ATTN_CHECK_HEADS, seqs):
+                q, k, v = (torch.randn((1, h, s, d), generator=gen, device="cuda").to(dtype)
                            for h in (hq, hkv, hkv))
                 for causal in (True, False):
                     plain = attention.mha_plain(q, k, v, causal)
-                    for bq, bkv in attn_kernel.TILES:
+                    for bq, bkv in fwd_tiles(dtype, d):
                         out = attn_kernel.flash_attention_cuda(q, k, v, causal, bq, bkv)
                         err = max(err, max_err(out, plain))
                         ratio = max(ratio, rule_ratio(out, plain, ATTN_RULE))
             torch.cuda.synchronize()
             res[f"flash_attention {str(dtype)[6:]} d{d}"] = {
-                "configs": len(attn_kernel.TILES) * len(ATTN_CHECK_HEADS) * 2, "max_abs_err": err,
+                "configs": len(fwd_tiles(dtype, d)) * len(ATTN_CHECK_HEADS) * len(seqs) * 2, "max_abs_err": err,
                 "tol": TOL[dtype]}
             if dtype == torch.bfloat16:
                 res[f"flash_attention {str(dtype)[6:]} d{d}"].update(max_ratio=ratio, rule=rule_text(ATTN_RULE))
@@ -786,7 +803,7 @@ def check_attention_bwd(gen: torch.Generator) -> dict:
             for (hq, hkv), seq, causal in itertools.product(ATTN_CHECK_HEADS, ATTN_BWD_CHECK_SEQS, (True, False)):
                 q, k, v = (torch.randn((1, h, seq, d), generator=gen, device="cuda").to(dtype) for h in (hq, hkv, hkv))
                 dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-                tile = (64, 64) if seq % 64 == 0 else (32, 32)
+                tile = attention.select_blocks(1, hq, hkv, seq, d, dtype)
                 readings.append(grad_reading(attention_grads(q, k, v, dout, causal, tile),
                                              attention_grads(q, k, v, dout, causal), rule))
             torch.cuda.synchronize()
@@ -1620,10 +1637,14 @@ def phase_main_attention() -> dict:
     b_ms, b_by = attention_bound(q, k, v, out)
     ms = tiles_ms[f"{tile[0]}x{tile[1]}"]
     one_ms = time_one_launch_ms(lambda: attn_kernel.flash_attention_cuda(q, k, v, True, *tile))
+    # the design's own work: P V runs twice, on P's bf16 hi and lo halves
+    design_ms = 1.5 * flops / PEAK_FLOPS[torch.bfloat16] * 1e3
     res = {"name": "flash_attention", "shape": ATTN_SHAPE, "dtype": "bfloat16", "causal": True,
            "tile": tile, "ms": ms, "ms_one_launch": one_ms, "tflops": flops / ms / 1e9,
-           "bound_ms": b_ms, "bound_by": b_by,
-           "pr12_ms": PR12_MS["flash_attention"], "plain_ms": plain_ms, "library_ms": sdpa_ms,
+           "tflops_6d": 1.5 * flops / ms / 1e9, "bound_ms": b_ms, "bound_by": b_by, "design_bound_ms": design_ms,
+           "kernel": attn_kernel.kernel_attributes(q.dtype, d, *tile),
+           "pr12_ms": PR12_MS["flash_attention"], "pr26_ms": PR26_MS["flash_attention"],
+           "plain_ms": plain_ms, "library_ms": sdpa_ms,
            "tiles_ms": tiles_ms, "order_matches": in_measured_order(tiles_ms), "max_abs_err": err,
            "tol": TOL[torch.bfloat16], "max_ratio": ratio, "rule": rule_text(ATTN_RULE),
            "library_ratio": library_ratio, "launches": launches["flash_attention"]}

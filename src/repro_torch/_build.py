@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, loaded with :mod:`ctypes`.  Libraries go to
 ``build/repro_torch/`` at the repository root, named by a hash of the source
 and the flags, so an edited source builds again and an unchanged one loads
-the library already there.  A failed build raises with the compiler's output
+the library already there; the hash also covers the ``csrc/*.cuh``
+headers that a source includes.  A failed build raises with the compiler's output
 (including the ``-Xptxas -v`` report); nothing falls back.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -54,9 +56,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
+
+
+def _headers(src: Path, seen: tuple[Path, ...] = ()) -> tuple[Path, ...]:
+    """The ``csrc/*.cuh`` files that ``src`` includes, directly or through
+    another of them, in the order first met."""
+    found = list(seen)
+    for m in _INCLUDE.finditer(src.read_bytes()):
+        header = CSRC / m.group(1).decode()
+        if header.exists() and header not in found:
+            found = list(_headers(header, (*found, header)))
+    return tuple(found)
+
+
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in _headers(src):  # an edited header builds its sources again
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

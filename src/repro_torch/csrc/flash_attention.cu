@@ -15,145 +15,97 @@
 //     max(l, 1e-30).  Kv tiles entirely above the diagonal are skipped: there
 //     every p is 0 and the rescale factor is exp(0) = 1, so skipping them
 //     changes no bit of the result (the first tile of every row holds key 0
-//     and is never fully masked).  The same holds for a warp whose 16 rows
-//     all lie above a kv tile: it skips that tile's products.
+//     and is never fully masked).  The same holds for a consumer warpgroup
+//     whose 64 rows all lie above a kv tile: it skips that tile's products.
 //
 // Bound on the H100: operations.  The causal forward at S = 4096, D = 128
 // does 4 * D flops per (query, key) pair against 2 bytes per element read
 // once; at 989 TFLOP/s (bf16 tensor cores) the operation bound is six times
 // the byte bound.  What the design does about that, by input type:
 //
-// bf16 (the models' type) runs both products on the tensor cores with
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate):
-//   * each warp owns 16 query rows; a block of BQ rows has BQ / 16 warps.
-//     Q's A fragments are loaded with ldmatrix once per block and stay in
-//     registers;
-//   * K and V tiles stay bf16 in shared memory in their own row-major layout,
-//     each row padded by 16 bytes so that the 8 rows an ldmatrix reads fall
-//     in distinct banks.  K's rows are S = Q K^T's B fragments as they are
-//     (ldmatrix); V's come transposed (ldmatrix.trans);
-//   * K and V are copied with cp.async into two stages, so the loads of kv
-//     tile j + 1 run under the products of tile j;
-//   * the online softmax runs on the accumulator fragments: a thread holds
-//     two rows (g and g + 8 of its warp's 16) and a row's max and sum are
-//     taken over the 4 lanes of a quad;
-//   * P stays in registers: the m16n8 C fragment of S has the layout of the
-//     m16n8k16 A fragment of P V.  The TPU kernel keeps p in f32, and P
-//     rounded once to bf16 fails the bf16 attention rule at S = 4096 (the
-//     port's PERF.md).  So P is split, P_hi = bf16(p), P_lo = bf16(p - P_hi),
-//     and P V = P_hi V + P_lo V: 1.5 times the tensor-core work of bf16 P,
-//     with p kept to about 2^-17 of its value.  l is summed from the f32 p;
+// bf16 (the models' type) runs on Hopper's own path: wgmma from shared
+// memory tiles that TMA fills, with one producer warpgroup and two consumer
+// warpgroups (flash_fwd_wgmma_kernel below; the building blocks are in
+// hopper.cuh, shared with the backward):
+//   * a block computes 128 query rows, 64 for each consumer warpgroup, of
+//     one (batch, q head).  Lane 0 of the producer warpgroup loads Q once by
+//     TMA from a 3-D tensor map (B Hq, S, D) and streams K and V of BKV keys
+//     a stage through a ring of kStages stages; K and V of a stage land on
+//     their own full mbarriers, so Q K^T starts before V has arrived, and
+//     each stage has an empty mbarrier (one arrival per consumer warp once
+//     its products have read the stage);
+//   * S = Q K^T by wgmma.mma_async m64nBKVk16, both operands K-major in
+//     shared memory, bf16 in and f32 accumulate;
+//   * the online softmax runs on the accumulator fragments, in base 2: the
+//     scale carries log2(e), so p = exp2(s c2 - m2) is one FMA and one ex2,
+//     with m2 the running max of s c2.  The mask is applied only on the
+//     tiles that the diagonal or `seq` crosses.  A thread holds two rows;
+//     a row's max is taken over the 4 lanes of a quad each tile, its sum
+//     only at the end (the lanes of a quad share the rescale factors);
+//   * the two consumer warpgroups take turns on the tensor cores (two named
+//     barriers): a turn is O += P_{j-1} V_{j-1}, then S_j = Q K_j^T, each
+//     waited for at once, and the softmax of tile j runs after the turn,
+//     under the other warpgroup's.  PERF.md times it against no turns,
+//     against two turns a tile given away as soon as their products are
+//     issued, and against the softmax of tile j run under the next tile's
+//     Q K^T in the same warpgroup (two more register tiles): one turn a
+//     tile was the fastest at S >= 2560, and 5 % slower than no turns at
+//     S = 512;
+//   * P stays in registers.  The TPU kernel keeps p in f32, and P rounded
+//     once to bf16 fails the bf16 attention rule at S = 4096 (the port's
+//     PERF.md).  So P is split, P_hi = bf16(p), P_lo = bf16(p - P_hi), into
+//     the A fragments of O += P_hi V + P_lo V by wgmma m64nDk16 with A from
+//     registers and V MN-major in shared memory: 6 D tensor-core flops a
+//     pair against the 4 D of the function, with p kept to about 2^-17 of
+//     its value.  l is summed from the f32 p;
 //   * causal q tiles run longest first (the q tile is the grid's slowest
 //     axis, reversed), so the short tiles of the causal tail fill the last
 //     wave.
+// Any S: the TMA unit zero-fills rows past `seq`, keys past `seq` are
+// masked, and rows past `seq` are not stored.
 // f32 keeps the scalar kernel: TF32 on the tensor cores would miss the f32
 // limit of 3e-5 that this path meets (8.94e-7, the port's PERF.md), and the
 // models' path is bf16.  Each thread holds a 4-row register tile of scores
 // and of the accumulator, so every value loaded from shared memory feeds 4
-// to 8 FMAs; K is stored transposed and Q, K and P with a padded row.
+// to 8 FMAs; K is stored transposed and Q, K and P with a padded row.  Its
+// tiles must divide S.
 //
-// Head dims.  The kernels take any D that is a multiple of 16 (whole mma
-// fragments; the P V loop steps O's n tiles in pairs, so D / 8 is even);
-// the dispatch compiles 16 (the models' smoke configs), 32, 64, 112
-// (Zamba2-7B), 128 (Qwen2.5-14B) and 160 (StableLM-12B) on every tile.
+// Head dims.  Both kernels compile 16 (the models' smoke configs), 32, 64,
+// 112 (Zamba2-7B), 128 (Qwen2.5-14B) and 160 (StableLM-12B).  bf16 tiles
+// are (128, 64) at every head dim and (128, 128) up to 128: at 160 Q and two
+// stages of 128-row K and V tiles would exceed 227 KB.  f32 tiles are (32,
+// 32), (64, 32), (64, 64) and (128, 64).
 //
 // What training adds.  Given an `lse` pointer (the autograd Function of
 // kernels/attention/kernel.py), each row's m + log(max(l, 1e-30)) is
-// written in f32, so that the backward (flash_attention_bwd.cu) recomputes
-// P = exp(x - lse) without a second pass over the keys.  Given `out_lo`
-// (bf16), the output's rounding error bf16(o - bf16(o)) is written beside
-// it, split as P is: the backward's D = rowsum(dO o o) from the rounded
-// output alone misses the plain version's gradient by 20 to 35 times
-// ATTN_GRAD_RULE where a causal row sees few keys (chip_smoke.py's
-// `without_out_lo`).
-// The serving path passes null for both and writes nothing more.
+// written in f32 in natural-log units (bf16: m2 ln 2 + log(max(l, 1e-30))),
+// so that the backward (flash_attention_bwd.cu) recomputes P = exp(x - lse)
+// without a second pass over the keys.  Given `out_lo` (bf16), the output's
+// rounding error bf16(o - bf16(o)) is written beside it, split as P is: the
+// backward's D = rowsum(dO o o) from the rounded output alone misses the
+// plain version's gradient by 20 to 35 times ATTN_GRAD_RULE where a causal
+// row sees few keys (chip_smoke.py's `without_out_lo`).  The serving path
+// passes null for both and writes nothing more.  No atomics: two launches
+// give the same bits.
 //
-// Shared memory per block.  bf16: Q (BQ x (D+8)), then K and V (BKV x (D+8)
-// each) in two stages, in bf16: 87 KB at (64, 64), D = 128, so two blocks
-// share an SM; at most 129,024 B, at (128, 64), D = 160.  f32: Q
-// (BQ x (D+1)), K^T (D x (BKV+1)), V (BKV x D), P (BQ x (BKV+1)), in f32: at
-// most 198,272 B, at (128, 64), D = 160.  Both are dynamic shared
-// memory, allowed per instantiation with cudaFuncSetAttribute.  This layout
-// is stated here only: flash_attention_attributes reports it, and a tile
-// that would exceed the 227 KB a block can have does not compile.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Shared memory per block.  bf16 (Fwd below): Q (two 64-row tiles), then
+// kStages stages of a K and a V tile of BKV rows, in the swizzled layout of
+// hopper.cuh, then the mbarriers: 230,480 B at (128, 128), D = 128 (three
+// stages); one block of 384 threads an SM.  f32: Q (BQ x (D+1)), K^T
+// (D x (BKV+1)), V (BKV x D), P (BQ x (BKV+1)), in f32: at most 198,272 B,
+// at (128, 64), D = 160.  Both are dynamic shared memory, allowed per
+// instantiation with cudaFuncSetAttribute.  flash_attention_attributes
+// reports it, and a tile that would exceed the 227 KB a block can have does
+// not compile.
+#include "hopper.cuh"
 
 #include <cstdint>
 #include <type_traits>
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxSmemBytes = 232448;
-constexpr int kSmRegisters = 65536;
-
-// ---- PTX: shared-memory address, cp.async, ldmatrix, mma.sync ----------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, bypassing L1
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8x8 bf16 matrices; lane i gives the address of row i % 8 of matrix
-// i / 8, and register m receives row lane / 4, columns 2 (lane % 4) and
-// 2 (lane % 4) + 1 of matrix m
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// the same, each matrix transposed: register m receives rows 2 (lane % 4)
-// and 2 (lane % 4) + 1 of column lane / 4
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// d += a b for a 16x16 bf16 A (row-major fragment), a 16x8 bf16 B
-// (column-major fragment) and a 16x8 f32 d
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// two f32 p of neighbouring columns as (P_hi, P_lo) pairs of bf16
-__device__ __forceinline__ void split_p(float p0, float p1, uint32_t& hi, uint32_t& lo) {
-  const bf16 h0 = __float2bfloat16_rn(p0), h1 = __float2bfloat16_rn(p1);
-  hi = pack_bf16(h0, h1);
-  lo = pack_bf16(__float2bfloat16_rn(p0 - __bfloat162float(h0)),
-                 __float2bfloat16_rn(p1 - __bfloat162float(h1)));
-}
+constexpr float kLn2 = 0.6931471805599453f;
 
 // max or sum over the 4 lanes of a quad, which hold one row of a fragment
 __device__ __forceinline__ float quad_max(float x) {
@@ -165,178 +117,218 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// ---- bf16: tensor cores -----------------------------------------------
+// named barrier `id` (1 and 2; 0 is __syncthreads') over the two consumer
+// warpgroups: one waits on its own, the other arrives on it
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kConsumers * 128) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kConsumers * 128) : "memory");
+}
 
-template <int BQ, int BKV, int D>
-struct TcTile {
-  static constexpr int kWarps = BQ / 16;
-  static constexpr int kThreads = kWarps * 32;
-  static constexpr int kRow = D + 8;  // bf16 per padded row
-  static constexpr int kQ = BQ * kRow;
-  static constexpr int kKV = BKV * kRow;  // one K or V tile
-  static constexpr int kBytes = static_cast<int>(sizeof(bf16)) * (kQ + 4 * kKV);
-  // registers a thread needs, roughly: O (D / 2), Q fragments (D / 4),
-  // S (BKV / 2) and 64 for the rest; two blocks per SM where that allows
-  static constexpr int kRegs = D / 2 + D / 4 + BKV / 2 + 64;
-  static constexpr int kMinBlocks = kSmRegisters / (kThreads * kRegs) >= 2 ? 2 : 1;
-  static_assert(BQ % 16 == 0 && BKV % 16 == 0 && D % 16 == 0, "tiles are whole mma fragments");
+// ---- bf16 on Hopper: wgmma, TMA and warp specialisation -------------------
+
+constexpr int kBlockQ = kConsumers * kWgRows;  // query rows a block
+constexpr int kMaxStages = 4;
+
+// (128, BKV) tiles at head dim D: their shared memory, and as many stages
+// of K and V (up to kMaxStages) as fit beside Q
+template <int D, int BKV>
+struct Fwd {
+  using W = Swizzle<D>;
+  static constexpr int kQTile = W::tile_bytes(kWgRows);  // one consumer's 64 rows of Q
+  static constexpr int kKvTile = W::tile_bytes(BKV);     // one K or V tile
+  static constexpr int kFree = kMaxSmemBytes - 1024 - 2 * kQTile - 8 * (1 + 3 * kMaxStages);
+  static constexpr int kStages = kFree / (2 * kKvTile) < kMaxStages ? kFree / (2 * kKvTile) : kMaxStages;
+  // Q, K and V of each stage, then the mbarriers (Q full, K full[kStages],
+  // V full[kStages], empty[kStages])
+  static constexpr int kBars = 2 * kQTile + 2 * kStages * kKvTile;
+  static constexpr int kBytes = 1024 + kBars + 8 * (1 + 3 * kStages);  // + the base's alignment to 1024
+  static_assert(BKV == 64 || BKV == 128, "wgmma's n is the kv tile: 64 or 128");
+  static_assert(kStages >= 2, "the tile leaves no room for two stages of K and V");
   static_assert(kBytes <= kMaxSmemBytes, "tile exceeds the shared memory of an H100 block");
 };
 
-template <int BQ, int BKV, int D>
-__global__ void __launch_bounds__((TcTile<BQ, BKV, D>::kThreads), (TcTile<BQ, BKV, D>::kMinBlocks))
-    flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
-                    bf16* __restrict__ out_lo, int hq, int hkv, int seq, int causal, float scale) {
-  using TL = TcTile<BQ, BKV, D>;
-  constexpr int R = TL::kRow;
-  constexpr int KD = D / 16;   // k steps of Q K^T
-  constexpr int NS = BKV / 8;  // n tiles of S
-  constexpr int ND = D / 8;    // n tiles of O
-  constexpr int kPieces = D / 8;  // 16-byte pieces of a row
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // [BQ][D + 8]
-  bf16* kvs = qs + TL::kQ;  // stage st: K at kvs + 2 st kKV, V after it
+// whether the (128, BKV) tile is compiled at head dim D
+template <int D, int BKV>
+constexpr bool kFwdTile = BKV == 64 || (BKV == 128 && D <= 128);
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tq = lane % 4;  // fragment row group, lane in quad
-  const int head = blockIdx.x;
-  const int batch = blockIdx.y;
-  const int q_tile = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;  // longest first
-  const int q0 = q_tile * BQ;
-  const int wrow = warp * 16;  // this warp's first row in the tile
-  const int kv_head = head / (hq / hkv);
-  const int64_t q_off = ((static_cast<int64_t>(batch) * hq + head) * seq + q0) * D;
-  const int64_t kv_off = (static_cast<int64_t>(batch) * hkv + kv_head) * seq * D;
+// Attention of 128 queries of one (batch, q head): queries q0 + 64 wg ..
+// for consumer warpgroup wg, over the kv tiles of BKV keys that they see,
+// in order
+template <int D, int BKV>
+__global__ void __launch_bounds__(kHopThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out,
+                           float* __restrict__ lse, bf16* __restrict__ out_lo, int hq, int hkv, int seq,
+                           int causal, float scale) {
+  using F = Fwd<D, BKV>;
+  using W = Swizzle<D>;
+  constexpr int S = F::kStages;
+  extern __shared__ unsigned char fwd_smem[];
+  const uint32_t base = (smem_addr(fwd_smem) + 1023) & ~1023u;
+  const uint32_t qs = base;                    // Q: two tiles, one a consumer warpgroup
+  const uint32_t ks = qs + 2 * F::kQTile;      // K of stage st at ks + st * kKvTile
+  const uint32_t vs = ks + S * F::kKvTile;     // V of each stage
+  const uint32_t q_full = base + F::kBars;
+  const uint32_t k_full0 = q_full + 8, v_full0 = k_full0 + 8 * S, empty0 = v_full0 + 8 * S;
 
-  auto load_rows = [&](bf16* dst, const bf16* src, int rows) {
-    for (int i = tid; i < rows * kPieces; i += TL::kThreads) {
-      const int r = i / kPieces, c = (i % kPieces) * 8;
-      cp_async16(dst + r * R + c, src + static_cast<int64_t>(r) * D + c);
+  const int head = blockIdx.x, batch = blockIdx.y;
+  const int q0 = (causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z) * kBlockQ;  // longest first
+  const int bh = batch * hq + head;
+  const int bh_kv = batch * hkv + head / (hq / hkv);
+  const int n_kv_all = (seq + BKV - 1) / BKV;
+  const int n_kv = causal ? min(n_kv_all, (q0 + kBlockQ + BKV - 1) / BKV) : n_kv_all;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(k_full0 + 8 * st, 1);
+      mbar_init(v_full0 + 8 * st, 1);
+      mbar_init(empty0 + 8 * st, kConsumers * 4);
     }
-  };
-  auto load_kv = [&](int j) {
-    bf16* st = kvs + (j & 1) * 2 * TL::kKV;
-    const int64_t off = kv_off + static_cast<int64_t>(j) * BKV * D;
-    load_rows(st, k + off, BKV);
-    load_rows(st + TL::kKV, v + off, BKV);
-  };
-
-  const int n_kv = causal ? min(seq / BKV, (q0 + BQ + BKV - 1) / BKV) : seq / BKV;
-  load_rows(qs, q + q_off, BQ);
-  cp_async_commit();
-  load_kv(0);
-  cp_async_commit();
-  cp_async_wait<1>();  // Q has landed
+    mbar_fence_init();
+  }
   __syncthreads();
 
-  uint32_t qf[KD][4];
-#pragma unroll
-  for (int kd = 0; kd < KD; ++kd)
-    ldmatrix_x4(qf[kd], qs + (wrow + lane % 8 + (lane / 8) % 2 * 8) * R + kd * 16 + lane / 16 * 8);
-
-  float acc[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const int row[2] = {q0 + wrow + g, q0 + wrow + g + 8};  // this thread's two rows
-
-  for (int j = 0; j < n_kv; ++j) {
-    if (j + 1 < n_kv) load_kv(j + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // tile j has landed
-    __syncthreads();
-    const bf16* ks = kvs + (j & 1) * 2 * TL::kKV;
-    const bf16* vs = ks + TL::kKV;
-    const int k0 = j * BKV;
-    if (!causal || k0 <= q0 + wrow + 15) {  // else every row of this warp is masked here
-      float s[NS][4];
-#pragma unroll
-      for (int nt = 0; nt < NS; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < KD; ++kd) {
-#pragma unroll
-        for (int nt = 0; nt < NS; nt += 2) {
-          uint32_t b[4];
-          ldmatrix_x4(b, ks + (nt * 8 + lane % 8 + lane / 16 * 8) * R + kd * 16 + (lane / 8) % 2 * 8);
-          mma_bf16_16816(s[nt], qf[kd], b[0], b[1]);
-          mma_bf16_16816(s[nt + 1], qf[kd], b[2], b[3]);
-        }
-      }
-
-      // online softmax on the fragments: element e of s[nt] is row row[e / 2],
-      // key k0 + 8 nt + 2 tq + e % 2
-      const bool diag = causal && k0 + BKV - 1 > q0 + wrow;  // some key of the tile is masked
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int nt = 0; nt < NS; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[nt][e] * scale;
-          if (diag && row[e / 2] < k0 + nt * 8 + 2 * tq + e % 2) x = kNegInf;
-          s[nt][e] = x;
-          mx[e / 2] = fmaxf(mx[e / 2], x);
-        }
-      }
-      float m_new[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) m_new[h] = fmaxf(m[h], quad_max(mx[h]));
-#pragma unroll
-      for (int nt = 0; nt < NS; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float p = expf(s[nt][e] - m_new[e / 2]);
-          if (diag && row[e / 2] < k0 + nt * 8 + 2 * tq + e % 2) p = 0.f;
-          s[nt][e] = p;
-          sum[e / 2] += p;
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float alpha = expf(m[h] - m_new[h]);
-        l[h] = l[h] * alpha + quad_sum(sum[h]);
-        m[h] = m_new[h];
-#pragma unroll
-        for (int nd = 0; nd < ND; ++nd) {
-          acc[nd][2 * h] *= alpha;
-          acc[nd][2 * h + 1] *= alpha;
-        }
-      }
-
-      // acc += P_hi V + P_lo V, 16 keys at a time
-#pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
-        uint32_t ph[4], pl[4];
-        split_p(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-        split_p(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-        split_p(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-        split_p(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-        for (int nd = 0; nd < ND; nd += 2) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, vs + (kk * 16 + lane % 8 + (lane / 8) % 2 * 8) * R + nd * 8 + lane / 16 * 8);
-          mma_bf16_16816(acc[nd], ph, b[0], b[1]);
-          mma_bf16_16816(acc[nd], pl, b[0], b[1]);
-          mma_bf16_16816(acc[nd + 1], ph, b[2], b[3]);
-          mma_bf16_16816(acc[nd + 1], pl, b[2], b[3]);
-        }
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {  // the producer warpgroup
+    regs_release<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect(q_full, 2 * F::kQTile);
+      for (int half = 0; half < 2; ++half)
+        for (int c = 0; c < W::kNc; ++c)
+          tma_load_3d(qs + half * F::kQTile + c * kWgRows * W::kW, &tm_q, c * W::kCw, q0 + half * kWgRows, bh,
+                      q_full);
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = j % S;
+        mbar_wait(empty0 + 8 * st, ((j / S) & 1) ^ 1);
+        const uint32_t k_full = k_full0 + 8 * st, v_full = v_full0 + 8 * st;
+        mbar_expect(k_full, F::kKvTile);
+        for (int c = 0; c < W::kNc; ++c)
+          tma_load_3d(ks + st * F::kKvTile + c * BKV * W::kW, &tm_k, c * W::kCw, j * BKV, bh_kv, k_full);
+        mbar_expect(v_full, F::kKvTile);
+        for (int c = 0; c < W::kNc; ++c)
+          tma_load_3d(vs + st * F::kKvTile + c * BKV * W::kW, &tm_v, c * W::kCw, j * BKV, bh_kv, v_full);
       }
     }
-    __syncthreads();  // tile j's stage is free for tile j + 2
-  }
-
+  } else {  // consumer warpgroup wg: queries qw .. qw + 63
+    regs_claim<kConsumerRegs>();
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, tq = lane % 4;
+    const int qw = q0 + wg * kWgRows;
+    const int row[2] = {qw + 16 * warp + g, qw + 16 * warp + g + 8};  // this thread's two queries
+    const uint32_t q_tile = qs + wg * F::kQTile;
+    const float c2 = scale * kLog2e;
+    // the tiles this warpgroup computes, a prefix of the block's: under the
+    // causal mask those that hold a key at or before its last query; none
+    // where every query lies past seq
+    const int n_mine = qw >= seq ? 0 : causal ? min(n_kv, (qw + kWgRows - 1) / BKV + 1) : n_kv;
+    // O; S = Q K^T of a tile, then its p, then its P fragments; the running
+    // max of s c2 and this thread's share of each row's sum
+    float acc[D / 2], sc[BKV / 2];
+    float m2[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float denom = fmaxf(l[h], 1e-30f);
-    if (lse != nullptr && tq == 0) lse[q_off / D + wrow + g + 8 * h] = m[h] + logf(denom);
-    const int64_t o_off = q_off + static_cast<int64_t>(wrow + g + 8 * h) * D + 2 * tq;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(q_full, 0);
+    if (wg == 1) named_arrive(1);  // warpgroup 0 takes the first turn
+    // Step j computes O += P_{j-1} V_{j-1} and then S_j = Q K_j^T in this
+    // warpgroup's turn, and the softmax of tile j after it, while the other
+    // warpgroup's products hold the tensor cores.  Both warpgroups take
+    // n_kv + 1 steps, so that their turns pair up; a step past this
+    // warpgroup's tiles computes nothing
+    for (int j = 0; j <= n_kv; ++j) {
+      const int st = j % S, prev = (j + S - 1) % S;
+      const bool pv = j > 0 && j <= n_mine, qk = j < n_mine;
+      if (pv) mbar_wait(v_full0 + 8 * prev, ((j - 1) / S) & 1);
+      if (qk) mbar_wait(k_full0 + 8 * st, (j / S) & 1);
+      named_sync(1 + wg);
+      if (pv) {  // O += P_hi V + P_lo V, 16 keys a step
+        const uint64_t vm = desc_mnmajor<D, BKV>(vs + prev * F::kKvTile);
+        wgmma_fence();
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      uint32_t hi, lo;
-      split_p(acc[nd][2 * h] / denom, acc[nd][2 * h + 1] / denom, hi, lo);
-      *reinterpret_cast<uint32_t*>(out + o_off + nd * 8) = hi;
-      if (out_lo != nullptr) *reinterpret_cast<uint32_t*>(out_lo + o_off + nd * 8) = lo;
+        for (int kk = 0; kk < BKV / 16; ++kk) wgmma_split(acc, sc, kk, vm + mn_step<D>(kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        hold(acc);
+        hold(sc);
+      }
+      if (qk) {
+        const uint64_t qb = opaque(desc_kmajor<D>(q_tile)), kb = desc_kmajor<D>(ks + st * F::kKvTile);
+        wgmma_fence();
+        wgmma_scores<D, kWgRows, BKV>(sc, qb, kb);
+        wgmma_commit();
+        wgmma_wait<0>();
+        hold(sc);
+      }
+      // the other warpgroup's turn (warpgroup 1's last step has no turn to give)
+      if (!(wg == 1 && j == n_kv)) named_arrive(2 - wg);
+      if (pv) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty0 + 8 * prev);  // this warp is done with tile j - 1's stage
+      }
+      if (j >= n_mine && j < n_kv) {
+        // a tile of the block that this warpgroup skips: once it has landed
+        // (so both warpgroups have released the stage's previous tile),
+        // this warpgroup's arrival belongs to it
+        mbar_wait(k_full0 + 8 * st, (j / S) & 1);
+        mbar_wait(v_full0 + 8 * st, (j / S) & 1);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty0 + 8 * st);
+      }
+      if (qk) {
+        const int k0 = j * BKV;
+        // element 4 jj + 2 h + e is query row[h], key k0 + 8 jj + 2 tq + e
+        const bool edge = (causal && k0 + BKV - 1 > qw) || k0 + BKV > seq;
+        if (edge) {
+#pragma unroll
+          for (int jj = 0; jj < BKV / 8; ++jj)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int key = k0 + 8 * jj + 2 * tq + e;
+                if (key >= seq || (causal && key > row[h])) sc[4 * jj + 2 * h + e] = kNegInf;
+              }
+        }
+        // element i is row (i / 2) % 2; two partial maxima and sums a row
+        float mx[4] = {kNegInf, kNegInf, kNegInf, kNegInf}, sum[4] = {0.f, 0.f, 0.f, 0.f}, alpha[2];
+#pragma unroll
+        for (int i = 0; i < BKV / 2; ++i) mx[i % 4] = fmaxf(mx[i % 4], sc[i]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float m_new = fmaxf(m2[h], quad_max(fmaxf(mx[2 * h], mx[2 * h + 1])) * c2);
+          alpha[h] = exp2_approx(m2[h] - m_new);
+          m2[h] = m_new;
+        }
+#pragma unroll
+        for (int i = 0; i < BKV / 2; ++i) {
+          float p = exp2_approx(fmaf(sc[i], c2, -m2[(i / 2) % 2]));
+          if (edge && sc[i] == kNegInf) p = 0.f;  // masked: p = 0 even where the row has seen no key yet
+          sc[i] = p;
+          sum[i % 4] += p;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + (sum[2 * h] + sum[2 * h + 1]);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+        split_acc(sc);  // P's hi and lo fragments in place, for the next step's P V
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float denom = fmaxf(quad_sum(l[h]), 1e-30f);
+      if (row[h] >= seq) continue;
+      const int64_t r = static_cast<int64_t>(bh) * seq + row[h];
+      if (lse != nullptr && tq == 0) lse[r] = m2[h] * kLn2 + logf(denom);
+      const int64_t off = r * D + 2 * tq;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        uint32_t hi, lo;
+        split2(acc[4 * jj + 2 * h] / denom, acc[4 * jj + 2 * h + 1] / denom, hi, lo);
+        *reinterpret_cast<uint32_t*>(out + off + 8 * jj) = hi;
+        if (out_lo != nullptr) *reinterpret_cast<uint32_t*>(out_lo + off + 8 * jj) = lo;
+      }
     }
   }
 }
@@ -505,95 +497,118 @@ struct Args {
   cudaStream_t stream;
 };
 
-// the kernel, its block and its shared memory for one input type: bf16 on
-// the tensor cores, f32 on the FMA pipe
-template <typename T, int BQ, int BKV, int D>
-struct Kernel {
-  static constexpr bool kTc = std::is_same<T, bf16>::value;
-  static constexpr int kThreads = kTc ? TcTile<BQ, BKV, D>::kThreads : F32Tile<BQ, BKV, D>::kThreads;
-  static constexpr int kBytes = kTc ? TcTile<BQ, BKV, D>::kBytes : F32Tile<BQ, BKV, D>::kBytes;
-  static auto fn() {
-    if constexpr (kTc)
-      return flash_tc_kernel<BQ, BKV, D>;
-    else
-      return flash_f32_kernel<BQ, BKV, D>;
-  }
-};
-
-template <typename T, int BQ, int BKV, int D>
-int launch_tile(const Args& a) {
-  using KN = Kernel<T, BQ, BKV, D>;
-  auto kernel = KN::fn();
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, KN::kBytes);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // do not leave the error for the next launch's check
-    return static_cast<int>(err);
-  }
-  const dim3 grid(a.hq, a.batch, a.seq / BQ);
-  kernel<<<grid, KN::kThreads, KN::kBytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.out), a.lse, static_cast<T*>(a.out_lo), a.hq, a.hkv, a.seq, a.causal, a.scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 struct Attrs {
   cudaFuncAttributes func;
   int smem_bytes;
 };
 
-template <typename T, int BQ, int BKV, int D>
-int attrs_tile(Attrs* out) {
-  using KN = Kernel<T, BQ, BKV, D>;
-  out->smem_bytes = KN::kBytes;
-  return static_cast<int>(cudaFuncGetAttributes(&out->func, KN::fn()));
+// bf16: the tensor maps, then flash_fwd_wgmma_kernel on (128, BKV) tiles
+template <int D, int BKV>
+int launch_wgmma(const Args& a) {
+  using F = Fwd<D, BKV>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tm_q, tm_k, tm_v;
+  int err;
+  if ((err = map_rows<D>(encode, &tm_q, a.q, a.batch * a.hq, a.seq, kWgRows)) ||
+      (err = map_rows<D>(encode, &tm_k, a.k, a.batch * a.hkv, a.seq, BKV)) ||
+      (err = map_rows<D>(encode, &tm_v, a.v, a.batch * a.hkv, a.seq, BKV)))
+    return err;
+  auto kernel = flash_fwd_wgmma_kernel<D, BKV>;
+  if ((err = allow_smem(kernel, F::kBytes))) return err;
+  const dim3 grid(a.hq, a.batch, (a.seq + kBlockQ - 1) / kBlockQ);
+  kernel<<<grid, kHopThreads, F::kBytes, a.stream>>>(tm_q, tm_k, tm_v, static_cast<bf16*>(a.out), a.lse,
+                                                     static_cast<bf16*>(a.out_lo), a.hq, a.hkv, a.seq, a.causal,
+                                                     a.scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// Calls F<T, BQ, BKV, D>(arg) for the compiled (block_q, block_kv) tiles;
-// kernels/attention/ops.py orders them by their time on the card.
-#define FLASH_TILES(F, T, D, BQ_, BKV_, ARG)            \
-  switch ((BQ_) * 1000 + (BKV_)) {                      \
-    case 32032: return F<T, 32, 32, D>(ARG);            \
-    case 64032: return F<T, 64, 32, D>(ARG);            \
-    case 64064: return F<T, 64, 64, D>(ARG);            \
-    case 128064: return F<T, 128, 64, D>(ARG);          \
+template <int D, int BKV>
+int attrs_wgmma(Attrs* out) {
+  out->smem_bytes = Fwd<D, BKV>::kBytes;
+  return static_cast<int>(cudaFuncGetAttributes(&out->func, flash_fwd_wgmma_kernel<D, BKV>));
+}
+
+// f32: flash_f32_kernel on (BQ, BKV) tiles that divide seq
+template <int D, int BQ, int BKV>
+int launch_f32(const Args& a) {
+  using TL = F32Tile<BQ, BKV, D>;
+  auto kernel = flash_f32_kernel<BQ, BKV, D>;
+  int err;
+  if ((err = allow_smem(kernel, TL::kBytes))) return err;
+  const dim3 grid(a.hq, a.batch, a.seq / BQ);
+  kernel<<<grid, TL::kThreads, TL::kBytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+      static_cast<float*>(a.out), a.lse, static_cast<float*>(a.out_lo), a.hq, a.hkv, a.seq, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int BQ, int BKV>
+int attrs_f32(Attrs* out) {
+  out->smem_bytes = F32Tile<BQ, BKV, D>::kBytes;
+  return static_cast<int>(cudaFuncGetAttributes(&out->func, flash_f32_kernel<BQ, BKV, D>));
+}
+
+// The compiled (block_q, block_kv) tiles of each input type, which
+// kernels/attention/kernel.py lists (TILES) and ops.py orders by their time
+// on the card: F<D, BQ, BKV>(arg) for f32, W<D, BKV>(arg) for bf16.
+#define F32_TILES(F, D, BQ_, BKV_, ARG)                      \
+  switch ((BQ_) * 1000 + (BKV_)) {                           \
+    case 32032: return F<D, 32, 32>(ARG);                    \
+    case 64032: return F<D, 64, 32>(ARG);                    \
+    case 64064: return F<D, 64, 64>(ARG);                    \
+    case 128064: return F<D, 128, 64>(ARG);                  \
     default: return static_cast<int>(cudaErrorInvalidValue); \
+  }
+#define BF16_TILES(W, D, BQ_, BKV_, ARG)                                   \
+  if ((BQ_) != kBlockQ) return static_cast<int>(cudaErrorInvalidValue);    \
+  switch (BKV_) {                                                          \
+    case 64: return W<D, 64>(ARG);                                         \
+    case 128:                                                              \
+      if constexpr (kFwdTile<D, 128>) return W<D, 128>(ARG);               \
+      return static_cast<int>(cudaErrorInvalidValue);                      \
+    default: return static_cast<int>(cudaErrorInvalidValue);               \
   }
 
 template <typename T, int D>
 int launch_d(int bq, int bkv, const Args& a) {
-  FLASH_TILES(launch_tile, T, D, bq, bkv, a)
+  if constexpr (std::is_same<T, bf16>::value) {
+    BF16_TILES(launch_wgmma, D, bq, bkv, a)
+  } else {
+    if (a.seq % bq || a.seq % bkv) return static_cast<int>(cudaErrorInvalidValue);
+    F32_TILES(launch_f32, D, bq, bkv, a)
+  }
 }
 
 template <typename T, int D>
 int attrs_d(int bq, int bkv, Attrs* out) {
-  FLASH_TILES(attrs_tile, T, D, bq, bkv, out)
+  if constexpr (std::is_same<T, bf16>::value) {
+    BF16_TILES(attrs_wgmma, D, bq, bkv, out)
+  } else {
+    F32_TILES(attrs_f32, D, bq, bkv, out)
+  }
 }
+
+// the head dims of kernels/attention/kernel.py HEAD_DIMS
+#define FWD_HEAD_DIMS(F, T, D_, ...)                          \
+  switch (D_) {                                               \
+    case 16: return F<T, 16>(__VA_ARGS__);                    \
+    case 32: return F<T, 32>(__VA_ARGS__);                    \
+    case 64: return F<T, 64>(__VA_ARGS__);                    \
+    case 112: return F<T, 112>(__VA_ARGS__);                  \
+    case 128: return F<T, 128>(__VA_ARGS__);                  \
+    case 160: return F<T, 160>(__VA_ARGS__);                  \
+    default: return static_cast<int>(cudaErrorInvalidValue);  \
+  }
 
 template <typename T>
 int launch_typed(int d, int bq, int bkv, const Args& a) {
-  switch (d) {
-    case 16: return launch_d<T, 16>(bq, bkv, a);
-    case 32: return launch_d<T, 32>(bq, bkv, a);
-    case 64: return launch_d<T, 64>(bq, bkv, a);
-    case 112: return launch_d<T, 112>(bq, bkv, a);
-    case 128: return launch_d<T, 128>(bq, bkv, a);
-    case 160: return launch_d<T, 160>(bq, bkv, a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  FWD_HEAD_DIMS(launch_d, T, d, bq, bkv, a)
 }
 
 template <typename T>
 int attrs_typed(int d, int bq, int bkv, Attrs* out) {
-  switch (d) {
-    case 16: return attrs_d<T, 16>(bq, bkv, out);
-    case 32: return attrs_d<T, 32>(bq, bkv, out);
-    case 64: return attrs_d<T, 64>(bq, bkv, out);
-    case 112: return attrs_d<T, 112>(bq, bkv, out);
-    case 128: return attrs_d<T, 128>(bq, bkv, out);
-    case 160: return attrs_d<T, 160>(bq, bkv, out);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  FWD_HEAD_DIMS(attrs_d, T, d, bq, bkv, out)
 }
 
 }  // namespace
@@ -601,20 +616,23 @@ int attrs_typed(int d, int bq, int bkv, Attrs* out) {
 extern "C" {
 
 // dtype: 0 = f32, 1 = bf16.  q, out: (batch, hq, seq, d); k, v: (batch, hkv,
-// seq, d), all contiguous.  lse: null, or (batch, hq, seq) f32 that receives
-// each row's log-sum-exp m + log(max(l, 1e-30)) of the scaled, masked
-// logits, which the backward (flash_attention_bwd.cu) recomputes P from.
-// out_lo: null, or for bf16 a second (batch, hq, seq, d) bf16 output that
-// receives bf16(o - out), o the f32 result, so that out + out_lo holds o to
-// about 2^-16 of its value (ignored for f32, whose out is o).  Returns
-// cudaGetLastError() after the launch (0 on success); argument errors
-// return cudaErrorInvalidValue.
+// seq, d), all contiguous (bf16: 16-byte aligned, as TMA reads them).  bf16
+// takes block_q 128 and any seq; f32 tiles must divide seq.  lse: null, or
+// (batch, hq, seq) f32 that receives each row's log-sum-exp
+// m + log(max(l, 1e-30)) of the scaled, masked logits, which the backward
+// (flash_attention_bwd.cu) recomputes P from.  out_lo: null, or for bf16 a
+// second (batch, hq, seq, d) bf16 output that receives bf16(o - out), o the
+// f32 result, so that out + out_lo holds o to about 2^-16 of its value
+// (ignored for f32, whose out is o).  Returns cudaGetLastError() after the
+// launch (0 on success); cudaErrorInvalidValue for arguments the kernels do
+// not take, cudaErrorNotSupported where the driver has no
+// cuTensorMapEncodeTiled, or 100000 + the CUresult where it refuses a
+// tensor map.
 int flash_attention_launch(int dtype, int d, int block_q, int block_kv, const void* q,
                            const void* k, const void* v, void* out, void* lse, void* out_lo,
                            int batch, int hq, int hkv, int seq, int causal, float scale,
                            void* stream) {
-  if (batch < 1 || hkv < 1 || hq % hkv || seq % block_q || seq % block_kv)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch < 1 || hkv < 1 || seq < 1 || hq % hkv) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, out, static_cast<float*>(lse), out_lo, batch, hq, hkv, seq, causal, scale,
                static_cast<cudaStream_t>(stream)};
   switch (dtype) {

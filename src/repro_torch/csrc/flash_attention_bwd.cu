@@ -70,22 +70,17 @@
 // lse and D (64 each): 198,656 B at D = 160; dQ kernel the same without P:
 // 182,016 B.  One block of 256 threads per SM.  The bf16 kernels' layouts
 // are stated at TcBwd and Hop.
-#include <cuda.h>  // CUtensorMap and its enums only: the driver entry is found at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
 
 #include <cstdint>
 #include <type_traits>
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kTile = 64;        // query and key rows of a tile
 constexpr int kThreads = 256;
 constexpr int kRows = 4;         // rows per thread in a register tile
 constexpr int kColThreads = 16;  // threads across the columns
-constexpr int kMaxSmemBytes = 232448;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -381,10 +376,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 // The tiles need seq to be a multiple of 32, which the forward's tiles
 // already ask.
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16 bytes from global to shared memory, or 16 zero bytes where !valid
 // (src is then not read)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -428,19 +419,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// two f32 values of neighbouring columns as (hi, lo) pairs of bf16
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const bf16 h0 = __float2bfloat16_rn(x0), h1 = __float2bfloat16_rn(x1);
-  hi = pack_bf16(h0, h1);
-  lo = pack_bf16(__float2bfloat16_rn(x0 - __bfloat162float(h0)),
-                 __float2bfloat16_rn(x1 - __bfloat162float(h1)));
 }
 
 // the A fragments (hi and lo) of k step kk from the C fragments c[2 kk] and
@@ -791,29 +769,21 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 //     dK += dS^T_hi Q + dS^T_lo Q, or dQ += dS_hi K + dS_lo K.
 // Shared memory tiles are stored as in a 128-byte (64-byte, 32-byte at head
 // dims 32, 16) swizzled layout that TMA writes and wgmma reads: a 64-row
-// tile is kNc chunks of kCw columns, each 64 rows of kW bytes.  No atomics:
+// tile is kNc chunks of kCw columns, each 64 rows of kW bytes.  The
+// mbarrier, TMA, setmaxnreg, descriptor, wgmma and tensor-map helpers are
+// in hopper.cuh, shared with the forward.  No atomics:
 // dK/dV sum over the group's q heads and q tiles in a fixed order, dQ over
 // the kv tiles in order.
 
-constexpr int kWgRows = 64;                              // rows a consumer warpgroup owns
-constexpr int kConsumers = 2;                            // consumer warpgroups a block
-constexpr int kHopThreads = (kConsumers + 1) * 128;      // and a producer warpgroup, one warp of it busy
 constexpr int kHopBlock = kConsumers * kWgRows;          // keys (dK/dV) or queries (dQ) a block
 constexpr int kStepRows = 64;                            // queries (dK/dV) or keys (dQ) a stage
 constexpr int kStages = 3;
-// setmaxnreg moves registers between the block's warpgroups: 384 threads
-// start with 168 (65,536 / 384), the producer gives up 144 a thread, the
-// two consumers take them, 72 a thread
-constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Hop {
-  static constexpr int kCw = D >= 64 ? 64 : D;          // columns a chunk: one swizzle span
-  static constexpr int kW = 2 * kCw;                    // bytes a chunk row
-  static constexpr int kNc = (D + kCw - 1) / kCw;       // chunks a row (D = 112: the last half zero)
-  static constexpr int kTileBytes = kNc * kStepRows * kW;    // bytes of a 64-row tile
-  static constexpr int kLayout = kW == 128 ? 1 : kW == 64 ? 2 : 3;  // wgmma's 128B, 64B, 32B swizzle
+  using W = Swizzle<D>;
+  static constexpr int kCw = W::kCw, kW = W::kW, kNc = W::kNc;
+  static constexpr int kTileBytes = W::tile_bytes(kStepRows);  // bytes of a 64-row tile
   static constexpr int kVec = kStepRows * 4;            // bytes of 64 rows of lse or D
   // dK/dV: K and V (two tiles each), Q and dO of each stage, lse and D of
   // each stage, then the mbarriers (K/V full, full[kStages], empty[kStages])
@@ -832,312 +802,6 @@ struct Hop {
   // d128: dK/dV 166,456 B (K, V 64 KB; three stages of Q, dO 96 KB, lse
   // and D 1.5 KB), dQ 164,920 B (Q, dO 64 KB; three stages of K, V 96 KB).
 };
-
-// -- mbarriers and TMA
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// one arrival on `bar` that also expects `bytes` of TMA copies
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("{\n .reg .b64 state;\n mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n .reg .b64 state;\n mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar) : "memory");
-}
-
-// waits until the phase of `bar` with this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// a box of the 3-D map at (column, row, head) into dst, completing on bar
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::
-          "r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-
-// a box of the 2-D map at (row, head) into dst, completing on bar
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
-          dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// -- registers between the warpgroups
-
-template <int R>
-__device__ __forceinline__ void regs_release() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-template <int R>
-__device__ __forceinline__ void regs_claim() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-// -- wgmma
-
-// A shared-memory matrix descriptor: start address, leading and stride
-// byte offsets, swizzle layout (1: 128B, 2: 64B, 3: 32B)
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, int layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(layout) << 62;
-}
-
-// The descriptor of a 64-row tile at `tile` as a K-major operand (8-row
-// groups 8 kW bytes apart) or as an MN-major one (chunks kStepRows kW bytes
-// apart), to which k_step and mn_step add the start of a k step.  The
-// base passes through `opaque` inside a loop, so that the compiler forms
-// each step's descriptor where it is used instead of keeping all of them.
-template <int D>
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile) {
-  using H = Hop<D>;
-  return smem_desc(tile, 16, 8 * H::kW, H::kLayout);
-}
-template <int D>
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile) {
-  using H = Hop<D>;
-  return smem_desc(tile, kStepRows * H::kW, 8 * H::kW, H::kLayout);
-}
-
-// k step kd of a K-major operand: columns 16 kd .. 16 kd + 15 of the head
-// dim, in 16-byte units of the start address
-template <int D>
-__device__ __forceinline__ constexpr uint64_t k_step(int kd) {
-  using H = Hop<D>;
-  return static_cast<uint64_t>((16 * kd / H::kCw) * kStepRows * H::kW + (16 * kd % H::kCw) * 2) >> 4;
-}
-
-// k step kk of an MN-major operand: rows 16 kk .. 16 kk + 15 of the tile
-template <int D>
-__device__ __forceinline__ constexpr uint64_t mn_step(int kk) {
-  return static_cast<uint64_t>(16 * kk * Hop<D>::kW) >> 4;
-}
-
-__device__ __forceinline__ uint64_t opaque(uint64_t x) {
-  asm volatile("mov.b64 %0, %0;\n" : "+l"(x));
-  return x;
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of registers that an
-// asynchronous wgmma reads or writes across its wait.
-template <int N>
-__device__ __forceinline__ void hold(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d = A B^T (first) and d += A B^T (acc) for a 64 x 16 A and a 64 x 16 B,
-// both K-major in shared memory (descriptors da, db).  The first step of a
-// product writes d without reading it, so d is free between products.
-__device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-      "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
-      "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
-      "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
-      "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
-      : "l"(da), "l"(db), "r"(0));
-}
-__device__ __forceinline__ void wgmma_ss_n64_acc(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// the 64 x 64 product d = A B^T over the head dim, D / 16 k steps, from
-// the K-major descriptors of A's and B's tiles
-template <int D>
-__device__ __forceinline__ void wgmma_scores(float (&d)[32], uint64_t da, uint64_t db) {
-  wgmma_ss_n64_first(d, da, db);
-#pragma unroll
-  for (int kd = 1; kd < D / 16; ++kd) wgmma_ss_n64_acc(d, da + k_step<D>(kd), db + k_step<D>(kd));
-}
-
-// d += A B for A 64 x 16 in registers (a) and B 16 x 16, MN-major in
-// shared memory (descriptor db)
-__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A B for A 64 x 16 in registers (a) and B 16 x 32, MN-major in
-// shared memory (descriptor db)
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A B for A 64 x 16 in registers (a) and B 16 x 64, MN-major in
-// shared memory (descriptor db)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A B for A 64 x 16 in registers (a) and B 16 x 112, MN-major in
-// shared memory (descriptor db)
-__device__ __forceinline__ void wgmma_rs(float (&d)[56], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %61, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55"
-      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A B for A 64 x 16 in registers (a) and B 16 x 128, MN-major in
-// shared memory (descriptor db)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Splits a 64 x 64 accumulator in place into the hi and lo bf16 A
-// fragments of its four k steps (columns 16 kk .. 16 kk + 15): k step kk's
-// hi fragment goes to c[8 kk .. 8 kk + 3] and its lo one to c[8 kk + 4 ..
-// 8 kk + 7], as bits.  Element 4 j + 2 h + e of a wgmma accumulator is row
-// 16 warp + g + 8 h, column 8 j + 2 tq + e, and the A fragment of a k step
-// takes the n8 blocks j = 2 kk and 2 kk + 1 in that order.  In place, the
-// fragments take the accumulator's registers and no others.
-__device__ __forceinline__ void split_acc(float (&c)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t hi[4], lo[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) split2(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1], hi[r], lo[r]);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      c[8 * kk + r] = __uint_as_float(hi[r]);
-      c[8 * kk + 4 + r] = __uint_as_float(lo[r]);
-    }
-  }
-}
-
-// d += A_hi B + A_lo B for k step kk of a split accumulator (split_acc)
-template <int N>
-__device__ __forceinline__ void wgmma_split(float (&d)[N], const float (&c)[32], int kk, uint64_t db) {
-  const uint32_t hi[4] = {__float_as_uint(c[8 * kk]), __float_as_uint(c[8 * kk + 1]), __float_as_uint(c[8 * kk + 2]),
-                          __float_as_uint(c[8 * kk + 3])};
-  const uint32_t lo[4] = {__float_as_uint(c[8 * kk + 4]), __float_as_uint(c[8 * kk + 5]),
-                          __float_as_uint(c[8 * kk + 6]), __float_as_uint(c[8 * kk + 7])};
-  wgmma_rs(d, hi, db);
-  wgmma_rs(d, lo, db);
-}
 
 // dK and dV of 128 keys of one (batch, kv head): keys k0 + 64 wg .. for
 // consumer warpgroup wg, over the group's q heads in order and, inside, the
@@ -1228,9 +892,9 @@ __global__ void __launch_bounds__(kHopThreads, 1)
         const uint64_t kb = opaque(desc_kmajor<D>(k_tile)), vb = opaque(desc_kmajor<D>(v_tile));
         const uint64_t qb = desc_kmajor<D>(qs + st * H::kTileBytes), dob = desc_kmajor<D>(dos + st * H::kTileBytes);
         wgmma_fence();
-        wgmma_scores<D>(xt, kb, qb);
+        wgmma_scores<D, kStepRows, kStepRows>(xt, kb, qb);
         wgmma_commit();
-        wgmma_scores<D>(dpt, vb, dob);
+        wgmma_scores<D, kStepRows, kStepRows>(dpt, vb, dob);
         wgmma_commit();
         const float* lse_r = reinterpret_cast<const float*>(base_ptr + (lse_s - base) + st * H::kVec);
         const float* dd_r = reinterpret_cast<const float*>(base_ptr + (dd_s - base) + st * H::kVec);
@@ -1270,13 +934,13 @@ __global__ void __launch_bounds__(kHopThreads, 1)
         // dV += P^T dO, then dK += dS^T Q, 16 queries a step, each operand
         // in its hi and lo halves; dS^T is split while dV's products run
         split_acc(xt);
-        const uint64_t dom = desc_mnmajor<D>(dos + st * H::kTileBytes);
+        const uint64_t dom = desc_mnmajor<D, kStepRows>(dos + st * H::kTileBytes);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) wgmma_split(acc_v, xt, kk, dom + mn_step<D>(kk));
         wgmma_commit();
         split_acc(dpt);
-        const uint64_t qm = desc_mnmajor<D>(qs + st * H::kTileBytes);
+        const uint64_t qm = desc_mnmajor<D, kStepRows>(qs + st * H::kTileBytes);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) wgmma_split(acc_k, dpt, kk, qm + mn_step<D>(kk));
@@ -1393,9 +1057,9 @@ __global__ void __launch_bounds__(kHopThreads, 1)
         const uint64_t qb = opaque(desc_kmajor<D>(q_tile)), dob = opaque(desc_kmajor<D>(do_tile));
         const uint64_t kb = desc_kmajor<D>(ks + st * H::kTileBytes), vb = desc_kmajor<D>(vs + st * H::kTileBytes);
         wgmma_fence();
-        wgmma_scores<D>(sc, qb, kb);
+        wgmma_scores<D, kStepRows, kStepRows>(sc, qb, kb);
         wgmma_commit();
-        wgmma_scores<D>(ds, dob, vb);
+        wgmma_scores<D, kStepRows, kStepRows>(ds, dob, vb);
         wgmma_commit();
         const bool edge = (causal && kv0 == qw) || qw + kWgRows > seq || kv0 + kStepRows > seq;
         wgmma_wait<1>();
@@ -1420,7 +1084,7 @@ __global__ void __launch_bounds__(kHopThreads, 1)
 #pragma unroll
         for (int i = 0; i < 32; ++i) ds[i] = sc[i] * (ds[i] - dd[(i / 2) % 2]);
         split_acc(ds);
-        const uint64_t km = desc_mnmajor<D>(ks + st * H::kTileBytes);
+        const uint64_t km = desc_mnmajor<D, kStepRows>(ks + st * H::kTileBytes);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) wgmma_split(acc, ds, kk, km + mn_step<D>(kk));  // dQ += dS K, 16 keys a step
@@ -1446,51 +1110,6 @@ __global__ void __launch_bounds__(kHopThreads, 1)
 
 // -- the tensor maps (host)
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver that the runtime loaded, so the
-// library needs no -lcuda; null where the driver has none
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
-      cudaGetLastError();
-      p = nullptr;
-    }
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// returned where the driver refuses a tensor map: kMapError + its CUresult
-constexpr int kMapError = 100000;
-
-// (bh, seq, d) bf16 rows, boxes of (kCw columns, 64 rows, 1 head), swizzled
-template <int D>
-int map_rows(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh, int seq) {
-  using H = Hop<D>;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(seq) * D * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(H::kCw), static_cast<cuuint32_t>(kStepRows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = H::kW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : H::kW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-                              elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(res);
-}
-
 // (bh, seq) f32 per-row values, boxes of 64 rows
 inline int map_vec(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh, int seq) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(bh)};
@@ -1512,16 +1131,6 @@ struct Args {
   float scale;
   cudaStream_t stream;
 };
-
-template <typename Kernel>
-int allow_smem(Kernel kernel, int bytes) {
-  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // do not leave the error for the next launch's check
-    return static_cast<int>(err);
-  }
-  return 0;
-}
 
 // the kernels, blocks and shared memory for one input type and head dim:
 // bf16 on Hopper's path up to D = 128 and on mma.sync at 160, f32 on the
@@ -1573,9 +1182,9 @@ int launch_hopper(const Args& a) {
   const int bhq = a.batch * a.hq, bhkv = a.batch * a.hkv;
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_lse, tm_delta;
   int err;
-  if ((err = map_rows<D>(encode, &tm_q, a.q, bhq, a.seq)) || (err = map_rows<D>(encode, &tm_k, a.k, bhkv, a.seq)) ||
-      (err = map_rows<D>(encode, &tm_v, a.v, bhkv, a.seq)) ||
-      (err = map_rows<D>(encode, &tm_do, a.dout, bhq, a.seq)) ||
+  if ((err = map_rows<D>(encode, &tm_q, a.q, bhq, a.seq, kStepRows)) || (err = map_rows<D>(encode, &tm_k, a.k, bhkv, a.seq, kStepRows)) ||
+      (err = map_rows<D>(encode, &tm_v, a.v, bhkv, a.seq, kStepRows)) ||
+      (err = map_rows<D>(encode, &tm_do, a.dout, bhq, a.seq, kStepRows)) ||
       (err = map_vec(encode, &tm_lse, a.lse, bhq, a.seq)) || (err = map_vec(encode, &tm_delta, a.delta, bhq, a.seq)))
     return err;
   const unsigned n_blocks = static_cast<unsigned>((a.seq + kHopBlock - 1) / kHopBlock);

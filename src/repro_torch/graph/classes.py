@@ -22,7 +22,7 @@ import re
 
 NODE_CLASSES = ("matmul", "elementwise", "mixer", "collective")
 MIXER_RANGE = "mixer:"  # record_function prefix for a mixer built of ATen kernels
-MIXER_KERNELS = ("flash_tc_kernel", "flash_f32_kernel", "flash_attention_bwd_", "flash_bwd_",
+MIXER_KERNELS = ("flash_fwd_wgmma_kernel", "flash_f32_kernel", "flash_attention_bwd_", "flash_bwd_",
                  "wkv_kernel", "wkv_bwd_")
 _GEMM = re.compile(r"gemm|gemv|nvjet|xmma|cutlass|cublas|splitkreduce", re.IGNORECASE)
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # torch.profiler's device events

@@ -3,11 +3,13 @@
 Replaces the Pallas TPU kernel
 ``repro.kernels.attention.kernel.flash_attention_pallas``: GQA attention
 forward with an online softmax, one thread block per (q head, batch, q
-tile) and a loop over kv tiles inside it.  bf16 runs both products on the
-tensor cores (``mma.sync``, with P split in two bf16 halves to keep its f32
-precision); f32 runs scalar FMAs.  A tensor on the CPU goes to the plain
-version (:func:`~repro_torch.kernels.attention.ref.mha_plain`); a CUDA
-tensor launches the kernel or raises.
+tile) and a loop over kv tiles inside it.  bf16 runs on Hopper's own path
+(``wgmma`` from tiles that TMA loads, a producer warpgroup and two consumer
+warpgroups of 64 query rows each, with P split in two bf16 halves to keep
+its f32 precision) on (128, block_kv) tiles at any S; f32 runs scalar FMAs
+on tiles that divide S.  A tensor on the CPU goes to the plain version
+(:func:`~repro_torch.kernels.attention.ref.mha_plain`); a CUDA tensor
+launches the kernel or raises.
 
 Gradients.  Where grad mode is on and q, k or v requires grad, a CUDA call
 goes through :class:`FlashAttentionFn`: its forward launches the same
@@ -41,21 +43,35 @@ from torch.utils.flop_counter import register_flop_formula
 from ... import _build
 from .ref import mha_plain
 
-# (block_q, block_kv) tiles that csrc/flash_attention.cu instantiates, at
-# every head dim; the source states their shared memory and refuses, at
-# compile time, a tile that would not fit an H100 block
-TILES = ((32, 32), (64, 32), (64, 64), (128, 64))
+# (block_q, block_kv) tiles that csrc/flash_attention.cu instantiates, by
+# input type: bf16 on Hopper's kernel (128 query rows a block, 64 a consumer
+# warpgroup; any S, the last tiles masked), f32 on the scalar kernel (tiles
+# that divide S).  The source states their shared memory and refuses, at
+# compile time, a tile that would not fit an H100 block: (128, 128) in bf16
+# is compiled at head dims up to 128 only (BF16_WIDE_KV_HEAD_DIMS)
+TILES = {torch.bfloat16: ((128, 64), (128, 128)), torch.float32: ((32, 32), (64, 32), (64, 64), (128, 64))}
 HEAD_DIMS = (16, 32, 64, 112, 128, 160)
-BWD_BF16_SEQ = 32  # the bf16 backward takes S a multiple of 32, as the forward's tiles
+BF16_WIDE_KV_HEAD_DIMS = (16, 32, 64, 112, 128)
+BWD_BF16_SEQ = 32  # the bf16 backward takes S a multiple of 32 (its head-dim-160 kernels' step)
 # head dims whose bf16 backward runs on Hopper's path (wgmma, TMA, warp
 # specialisation); 160 keeps the mma.sync kernels (csrc/flash_attention_bwd.cu)
 BWD_WGMMA_HEAD_DIMS = (16, 32, 64, 112, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def compiled(block_q: int, block_kv: int, d: int) -> bool:
-    """Whether the CUDA source instantiates this (tile, head dim)."""
-    return (block_q, block_kv) in TILES and d in HEAD_DIMS
+def compiled(block_q: int, block_kv: int, d: int, dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the CUDA source instantiates this (tile, head dim) for
+    ``dtype``."""
+    if d not in HEAD_DIMS or (block_q, block_kv) not in TILES.get(dtype, ()):
+        return False
+    return not (dtype == torch.bfloat16 and block_kv == 128 and d not in BF16_WIDE_KV_HEAD_DIMS)
+
+
+def takes_seq(block_q: int, block_kv: int, s: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel for ``dtype`` takes sequence length ``s`` with this
+    tile: bf16 masks a ragged last q and kv tile; f32, and on the CPU every
+    other type, as in the JAX package, need tiles that divide ``s``."""
+    return dtype == torch.bfloat16 or not (s % block_q or s % block_kv)
 
 
 @functools.cache
@@ -93,7 +109,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int, bloc
     if (bk, skv, dk) != (b, sq, d) or hkv < 1 or hq % hkv:
         raise ValueError(f"k, v {tuple(k.shape)} do not match q {tuple(q.shape)} "
                          f"(same B, S, D; Hq a multiple of Hkv)")
-    if sq % block_q or skv % block_kv:
+    if not takes_seq(block_q, block_kv, sq, q.dtype):
         raise ValueError(f"seq {sq}/{skv} not divisible by blocks {block_q}/{block_kv}")
     if k.device != q.device or v.device != q.device or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k and v must share one device and one dtype")
@@ -104,13 +120,14 @@ def flash_attention_cuda(
     k: torch.Tensor,
     v: torch.Tensor,
     causal: bool = True,
-    block_q: int = 64,
+    block_q: int = 128,
     block_kv: int = 64,
 ) -> torch.Tensor:
     """Attention of ``q`` (B, Hq, S, D) over ``k``, ``v`` (B, Hkv, S, D) with
-    (block_q, block_kv) tiles; output (B, Hq, S, D) in q's dtype.  On the
-    CPU the tile need only divide S, as in the JAX package: the plain
-    version does not tile.  On the card it must be compiled."""
+    (block_q, block_kv) tiles; output (B, Hq, S, D) in q's dtype.  The
+    default tile, (128, 64), is compiled for both input types at every head
+    dim.  On the CPU the tile need only take S (:func:`takes_seq`): the plain
+    version does not tile.  On the card it must be compiled for q's dtype."""
     _check(q, k, v, block_q, block_kv)
     fake = is_fake(q)
     if q.device.type == "cpu" and not fake:
@@ -120,9 +137,9 @@ def flash_attention_cuda(
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention_cuda takes f32 or bf16, got {q.dtype}")
     b, hq, s, d = q.shape
-    if not compiled(block_q, block_kv, d):
-        raise ValueError(f"tile ({block_q}, {block_kv}) at head dim {d} is not compiled; "
-                         f"tiles {TILES} at head dims {HEAD_DIMS} are")
+    if not compiled(block_q, block_kv, d, q.dtype):
+        raise ValueError(f"tile ({block_q}, {block_kv}) at head dim {d} is not compiled for {q.dtype}; "
+                         f"tiles {TILES[q.dtype]} at head dims {HEAD_DIMS} are")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
@@ -212,8 +229,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool = True, out_l
     plain version, autograd through :func:`~.ref.mha_plain` (``out``,
     ``lse`` and ``out_lo`` unread); a CUDA tensor launches
     ``csrc/flash_attention_bwd.cu`` (the head dims of the forward; any S in
-    f32, S a multiple of 32 in bf16, as the forward's tiles ask) or
-    raises."""
+    f32, S a multiple of 32 in bf16) or raises."""
     _check(q, k, v, 1, 1)
     if (out.shape != q.shape or dout.shape != q.shape or tuple(lse.shape) != tuple(q.shape[:3])
             or (out_lo is not None and out_lo.shape != q.shape)):
@@ -283,8 +299,8 @@ flash_attention_bwd_cuda.launches = 0
 
 def kernel_attributes(dtype: torch.dtype, d: int, block_q: int, block_kv: int) -> dict:
     """Registers and local (spill) bytes per thread, the largest block, and
-    the dynamic shared memory of the compiled instantiation, as the CUDA
-    source lays it out."""
+    the dynamic shared memory of the compiled instantiation for ``dtype``,
+    as the CUDA source lays it out."""
     vals = [ctypes.c_int() for _ in range(4)]
     err = _lib().flash_attention_attributes(
         _DTYPE_CODES[dtype], d, block_q, block_kv, *(ctypes.byref(x) for x in vals))

@@ -5,47 +5,64 @@ Pallas (block_q, block_kv) tiles with its TPU estimator, which models VMEM
 and the MXU and so says nothing about this kernel.  No GPU IR describes the
 fused flash kernel either (the registry's ``attention_gpu_ir`` models a
 naive pass over the score matrix).  So the tile is not ranked: it is fixed
-by measurement.  :data:`MEASURED_ORDER` lists the compiled tiles by their
-time on an NVIDIA H100 80GB HBM3 (700 W) at Qwen2.5-14B's width (B = 1,
-Hq = 40, Hkv = 8, S = 4096, D = 128, bf16, causal), and
-:func:`select_blocks` takes the first that divides S.  In effect that is
-(64, 64) wherever 64 divides S and (32, 32) for the other multiples of 32;
-(64, 32) and (128, 64) are never picked, and are compiled so that
-``chip_smoke.py``, which times every compiled tile at that shape on every
-run, shows how near the runners-up come.  ``PERF.md`` records the times.
+by measurement.  :data:`MEASURED_ORDER` lists the compiled tiles of each
+input type's kernel by their time on an NVIDIA H100 80GB HBM3 (700 W) at
+Qwen2.5-14B's width (B = 1, Hq = 40, Hkv = 8, S = 4096, D = 128, causal),
+and :func:`select_blocks` takes the first that the kernel compiles at the
+head dim and that takes S.  bf16 (the models' type) runs Hopper's kernel,
+whose (128, block_kv) tiles take any S; ``chip_smoke.py`` times both of its
+tiles at that shape on every run.  f32 runs the scalar kernel, whose tiles
+must divide S: its order is the one measured for the earlier bf16 kernel
+on the same four tiles, kept since no model path runs attention in f32.
+``PERF.md`` records the times.
 """
 from __future__ import annotations
 
 import torch
 
 from ...core import tpu_estimator as te
-from .kernel import compiled, flash_attention_cuda
+from .kernel import compiled, flash_attention_cuda, takes_seq
 from .ref import mha_plain
 
-# fastest first, by chip_smoke.py's per-tile times at that shape with the
-# bf16 kernel on the tensor cores (PERF.md, Findings)
-MEASURED_ORDER = ((64, 64), (64, 32), (128, 64), (32, 32))
+# fastest first, by input type: bf16 by chip_smoke.py's per-tile times at
+# that shape with Hopper's kernel, f32 as stated above (PERF.md, Findings)
+MEASURED_ORDER = {
+    torch.bfloat16: ((128, 128), (128, 64)),
+    torch.float32: ((64, 64), (64, 32), (128, 64), (32, 32)),
+}
+
+
+def _kernel_dtype(dtype) -> torch.dtype:
+    """The input type whose kernel's tiles ``dtype`` takes: bf16's, else
+    f32's (on the CPU any other type runs the plain version with f32's
+    tiles)."""
+    return torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+
+
+def _order(dtype) -> tuple[tuple[int, int], ...]:
+    return MEASURED_ORDER[_kernel_dtype(dtype)]
 
 
 def config_space(
     b: int, hq: int, hkv: int, s: int, d: int, dtype=torch.bfloat16, causal: bool = True
 ) -> list[tuple[int, int]]:
-    """The compiled (block_q, block_kv) tiles that divide ``s`` at head dim
-    ``d``, in :data:`MEASURED_ORDER`.  ``b``, ``hq``, ``hkv``, ``dtype`` and
-    ``causal`` are not read: they keep the JAX package's signature, whose
-    estimator ranks by them."""
-    return [(bq, bkv) for bq, bkv in MEASURED_ORDER if not (s % bq or s % bkv) and compiled(bq, bkv, d)]
+    """The (block_q, block_kv) tiles compiled for ``dtype`` at head dim
+    ``d`` that take ``s`` (any ``s`` in bf16, tiles that divide it in f32),
+    in :data:`MEASURED_ORDER`.  ``b``, ``hq``, ``hkv`` and ``causal`` are
+    not read: they keep the JAX package's signature, whose estimator ranks by
+    them."""
+    return [t for t in _order(dtype) if takes_seq(*t, s, dtype) and compiled(*t, d, _kernel_dtype(dtype))]
 
 
 def select_blocks(
     b: int, hq: int, hkv: int, s: int, d: int, dtype=torch.bfloat16, causal: bool = True
 ) -> tuple[int, int]:
     """The first tile of :func:`config_space`, the fastest measured tile
-    that this shape admits: (64, 64) if 64 divides ``s``, else (32, 32) if
-    32 does, else ``ValueError``."""
+    that this shape admits; ``ValueError`` where there is none (a head dim
+    that is not compiled, or in f32 an ``s`` that no tile divides)."""
     space = config_space(b, hq, hkv, s, d, dtype, causal)
     if not space:
-        raise ValueError(f"no compiled tile divides seq {s} at head dim {d}")
+        raise ValueError(f"no compiled {dtype} tile takes seq {s} at head dim {d}")
     return space[0]
 
 
@@ -59,12 +76,16 @@ def flash_attention(
 ) -> torch.Tensor:
     """GQA attention of ``q`` (B, Hq, S, D) over ``k``, ``v`` (B, Hkv, S, D);
     picks the tile with :func:`select_blocks` where one is not given.  A CPU
-    tensor runs the plain version, which does not tile: there the first
-    listed tile that divides S is taken, at any head dim."""
+    tensor runs the plain version, which does not tile: there the tile
+    :func:`select_blocks` picks, or at a head dim the card does not compile
+    the first listed tile of q's dtype that takes S.  (A fake tensor of a
+    dry run lies on the CPU and reaches the kernel's path: it needs the
+    compiled tile.)"""
     if block_q is None or block_kv is None:
         b, hq, s, d = q.shape
         if q.device.type == "cpu":
-            fits = [t for t in MEASURED_ORDER if not (s % t[0] or s % t[1])]
+            fits = (config_space(b, hq, k.shape[1], s, d, q.dtype, causal)
+                    or [t for t in _order(q.dtype) if takes_seq(*t, s, q.dtype)])
             bq, bkv = fits[0] if fits else select_blocks(b, hq, k.shape[1], s, d, q.dtype, causal)
         else:
             bq, bkv = select_blocks(b, hq, k.shape[1], s, d, q.dtype, causal)

@@ -42,8 +42,9 @@ from .shardctx import constrain, is_dtensor, kernel_placements, merge_heads, on_
 
 Params = Mapping[str, torch.Tensor]
 
-# S is zero-padded to a multiple of this, the smallest compiled tile side,
-# before the flash kernel (csrc/flash_attention.cu needs whole tiles)
+# S is zero-padded to a multiple of this before the flash kernels: the f32
+# forward needs whole tiles (its smallest side is 32) and the bf16 backward S
+# a multiple of 32 (csrc/flash_attention_bwd.cu); the bf16 forward takes any S
 ATTN_PAD = 32
 NEG_INF = -1e30
 

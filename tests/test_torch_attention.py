@@ -145,31 +145,47 @@ def test_entry_point_selects_a_compiled_tile_and_runs_plain_on_cpu():
 
 @pytest.mark.parametrize("s,d", [(4096, 128), (256, 64), (96, 32), (64, 128)])
 def test_select_blocks_returns_a_compiled_tile_that_divides_s(s, d):
+    # bf16, the models' type: Hopper's kernel takes any S, so the fastest
+    # measured tile that is compiled at this head dim
     bq, bkv = select_blocks(1, 40, 8, s, d)
+    assert (bq, bkv) == MEASURED_ORDER[torch.bfloat16][0] == (128, 128)
+    assert config_space(1, 40, 8, s, d) == [(128, 128), (128, 64)]
+    assert compiled(bq, bkv, d, torch.bfloat16)
+    # f32: the scalar kernel's tiles divide S
+    bq, bkv = select_blocks(1, 40, 8, s, d, torch.float32)
     assert (bq, bkv) == ((64, 64) if not s % 64 else (32, 32))
-    # the order of the tensor-core kernel's tiles on the card (PERF.md)
-    assert config_space(1, 40, 8, s, d) == [
+    assert config_space(1, 40, 8, s, d, torch.float32) == [
         t for t in ((64, 64), (64, 32), (128, 64), (32, 32)) if not s % t[0] and not s % t[1]]
-    assert compiled(bq, bkv, d) and not s % bq and not s % bkv
-    assert (bq, bkv) == config_space(1, 40, 8, s, d)[0]
-    assert all(compiled(*t, d) and not s % t[0] and not s % t[1] for t in config_space(1, 40, 8, s, d))
+    assert compiled(bq, bkv, d, torch.float32) and not s % bq and not s % bkv
+    assert (bq, bkv) == config_space(1, 40, 8, s, d, torch.float32)[0]
+    assert all(compiled(*t, d, torch.float32) and not s % t[0] and not s % t[1]
+               for t in config_space(1, 40, 8, s, d, torch.float32))
 
 
 def test_measured_order_lists_every_compiled_tile_once():
-    assert len(set(MEASURED_ORDER)) == len(MEASURED_ORDER)
-    assert sorted(MEASURED_ORDER) == sorted(TILES)
-    assert all(compiled(*t, d) for t in TILES for d in (32, 64, 128))
-
+    assert set(MEASURED_ORDER) == set(TILES) == {torch.bfloat16, torch.float32}
+    for dtype, order in MEASURED_ORDER.items():
+        assert len(set(order)) == len(order)
+        assert sorted(order) == sorted(TILES[dtype])
+        assert all(compiled(*t, d, dtype) for t in TILES[dtype] for d in (32, 64, 128))
+    assert all(bq == 128 for bq, _ in TILES[torch.bfloat16])  # two consumer warpgroups of 64 rows
 
 
 # the head dims the card compiles besides 32, 64 and 128: the smoke configs'
 # 16, Zamba2-7B's shared attention's 112 and StableLM-12B's 160
 def test_new_head_dims_are_compiled_on_every_tile():
     for d in (16, 112, 160):
-        assert all(compiled(*t, d) for t in TILES)
-        assert select_blocks(1, 32, 8, 512, d) == (64, 64)
-        assert select_blocks(1, 32, 8, 96, d) == (32, 32)
-        assert config_space(1, 32, 8, 512, d) == list(MEASURED_ORDER)
+        assert all(compiled(*t, d, torch.float32) for t in TILES[torch.float32])
+        assert compiled(128, 64, d, torch.bfloat16)
+        # (128, 128) in bf16 up to head dim 128: at 160, Q and two stages of
+        # K and V tiles exceed an H100 block's shared memory
+        assert compiled(128, 128, d, torch.bfloat16) == (d != 160)
+        assert select_blocks(1, 32, 8, 512, d, torch.float32) == (64, 64)
+        assert select_blocks(1, 32, 8, 96, d, torch.float32) == (32, 32)
+        assert config_space(1, 32, 8, 512, d, torch.float32) == list(MEASURED_ORDER[torch.float32])
+        bf16 = [t for t in MEASURED_ORDER[torch.bfloat16] if compiled(*t, d)]
+        assert select_blocks(1, 32, 8, 512, d) == select_blocks(1, 32, 8, 96, d) == bf16[0]
+        assert config_space(1, 32, 8, 96, d) == bf16
 
 
 # Zamba2-7B's 112 and StableLM-12B's 160 at StableLM's group of 4 and
@@ -189,9 +205,13 @@ def test_flash_attention_matches_jax_at_head_dims_112_and_160(dtype, d, hq, hkv,
 
 def test_select_blocks_raises_where_no_tile_divides_s():
     with pytest.raises(ValueError):
-        select_blocks(1, 4, 4, 48, 64)
+        select_blocks(1, 4, 4, 48, 64, torch.float32)
     with pytest.raises(ValueError):
         select_blocks(1, 4, 4, 256, 96)  # head dim not compiled
+    with pytest.raises(ValueError):
+        select_blocks(1, 4, 4, 256, 96, torch.float32)
+    # bf16's kernel masks a ragged last tile: S = 48 takes its first tile
+    assert select_blocks(1, 4, 4, 48, 64) == MEASURED_ORDER[torch.bfloat16][0]
 
 
 def test_non_dividing_or_mismatched_inputs_raise():

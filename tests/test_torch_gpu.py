@@ -26,10 +26,11 @@ import pytest
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.kernels.attention import flash_attention, flash_attention_cuda, mha_plain
+from repro_torch.kernels.attention import flash_attention, flash_attention_cuda, mha_plain, select_blocks
 from repro_torch.data import SyntheticTokenDataset, to_device
 from repro_torch.configs import ARCH_IDS
-from repro_torch.kernels.attention.kernel import BWD_WGMMA_HEAD_DIMS, HEAD_DIMS, TILES, flash_attention_bwd_cuda
+from repro_torch.kernels.attention.kernel import (BWD_WGMMA_HEAD_DIMS, HEAD_DIMS, TILES, compiled,
+                                                  flash_attention_bwd_cuda)
 from repro_torch.kernels.lbm_d3q15 import config_space as lbm_space
 from repro_torch.kernels.lbm_d3q15 import init_fields, lbm_d3q15_cuda, lbm_step, lbm_step_plain
 from repro_torch.kernels.stencil25 import config_space as stencil_space
@@ -97,18 +98,23 @@ def test_lbm_kernel_matches_plain_on_every_config(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_flash_kernel_matches_plain_on_every_tile(cuda, dtype, d):
+    """S = 256, and in bf16 also S = 96 and 160, where the last q and kv
+    tiles of Hopper's kernel reach past S."""
     gen = torch.Generator(device=cuda).manual_seed(2)
-    for hq, hkv in ((4, 4), (4, 2), (8, 1), (10, 2)):
-        q, k, v = (torch.randn((1, h, 256, d), generator=gen, device=cuda).to(dtype)
+    seqs = (256, 96, 160) if dtype == torch.bfloat16 else (256,)
+    for (hq, hkv), s in itertools.product(((4, 4), (4, 2), (8, 1), (10, 2)), seqs):
+        q, k, v = (torch.randn((1, h, s, d), generator=gen, device=cuda).to(dtype)
                    for h in (hq, hkv, hkv))
         for causal in (True, False):
             plain = mha_plain(q, k, v, causal)
-            for bq, bkv in TILES:
+            for bq, bkv in TILES[dtype]:
+                if not compiled(bq, bkv, d, dtype):
+                    continue
                 out = flash_attention_cuda(q, k, v, causal, bq, bkv)
                 assert out.dtype == dtype and out.shape == q.shape
-                assert _err(out, plain) <= TOL[dtype], (hq, hkv, causal, bq, bkv)
+                assert _err(out, plain) <= TOL[dtype], (hq, hkv, s, causal, bq, bkv)
                 if dtype == torch.bfloat16:
-                    assert _close(out, plain, 2e-3, 1e-2), (hq, hkv, causal, bq, bkv)
+                    assert _close(out, plain, 2e-3, 1e-2), (hq, hkv, s, causal, bq, bkv)
 
 
 def test_flash_bf16_kernel_matches_plain_at_s2048_on_every_tile(cuda):
@@ -118,10 +124,24 @@ def test_flash_bf16_kernel_matches_plain_at_s2048_on_every_tile(cuda):
     q, k, v = (torch.randn((1, h, 2048, 128), generator=gen, device=cuda).to(torch.bfloat16)
                for h in (10, 2, 2))
     plain = mha_plain(q, k, v, True)
-    for bq, bkv in TILES:
+    for bq, bkv in TILES[torch.bfloat16]:
         out = flash_attention_cuda(q, k, v, True, bq, bkv)
         assert _err(out, plain) <= TOL[torch.bfloat16], (bq, bkv)
         assert _close(out, plain, 2e-3, 1e-2), (bq, bkv)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_flash_bf16_forward_gives_the_same_bits_twice(cuda, d):
+    """No atomics: two launches of each bf16 tile on the same inputs (with
+    lse and out_lo, as training runs it) give equal bits."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn((2, h, 416, d), generator=gen, device=cuda).to(torch.bfloat16).requires_grad_()
+               for h in (10, 2, 2))
+    for bq, bkv in TILES[torch.bfloat16]:
+        if compiled(bq, bkv, d):
+            outs = [flash_attention_cuda(q, k, v, True, bq, bkv) for _ in range(2)]
+            first, second = (o.grad_fn.saved_tensors for o in outs)
+            assert all(torch.equal(a, b) for a, b in zip(first[3:], second[3:]))  # out, lse, out_lo
 
 
 def _wkv_inputs(gen, bh, s, kd, device):
@@ -232,6 +252,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                              q[..., :48].contiguous(), block_q=64, block_kv=64)  # head dim 48
     with pytest.raises(TypeError):
         flash_attention_cuda(q.half(), q.half(), q.half(), block_q=64, block_kv=64)
+    with pytest.raises(ValueError):  # an f32 tile: bf16 runs (128, block_kv) tiles
+        flash_attention_cuda(q.bfloat16(), q.bfloat16(), q.bfloat16(), block_q=64, block_kv=64)
     with pytest.raises(ValueError):
         flash_attention_cuda(q.transpose(2, 3).contiguous().transpose(2, 3)[:, :, :64, :],
                              q[:, :, :64].contiguous(), q[:, :, :64].contiguous(), block_q=64, block_kv=64)
@@ -329,7 +351,7 @@ def test_flash_backward_kernel_matches_autograd_through_the_plain_version(cuda, 
         q, k, v = (torch.randn((1, h, s, d), generator=gen, device=cuda).to(dtype).requires_grad_()
                    for h in (hq, hkv, hkv))
         dout = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
-        tile = (64, 64) if s % 64 == 0 else (32, 32)
+        tile = select_blocks(1, hq, hkv, s, d, dtype)
         n = flash_attention_bwd_cuda.launches
         out = flash_attention_cuda(q, k, v, causal, *tile)
         assert out.grad_fn is not None
@@ -352,7 +374,7 @@ def test_flash_backward_gives_the_same_bits_twice_and_counts_one_launch(cuda, d)
         q, k, v = (torch.randn((2, h, s, d), generator=gen, device=cuda).to(torch.bfloat16).requires_grad_()
                    for h in (hq, hkv, hkv))
         dout = torch.randn(q.shape, generator=gen, device=cuda).to(torch.bfloat16)
-        out = flash_attention_cuda(q, k, v, True, *((64, 64) if s % 64 == 0 else (32, 32)))
+        out = flash_attention_cuda(q, k, v, True, *select_blocks(2, hq, hkv, s, d))
         saved = out.grad_fn.saved_tensors  # q, k, v, out, lse, out_lo
         n = flash_attention_bwd_cuda.launches
         first = flash_attention_bwd_cuda(*saved[:5], dout, True, saved[5])

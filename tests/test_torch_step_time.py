@@ -320,7 +320,7 @@ H100_KERNELS = {
         "void gemmSN_NN_kernel<float, 256, 4, 2, 8, 4, 4, false, cublasGemvTensorStridedBatched<float const>, cublasGemvTensorStr",
     ],
     "mixer": [
-        "void (anonymous namespace)::flash_tc_kernel<64, 64, 128>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const",
+        "void (anonymous namespace)::flash_fwd_wgmma_kernel<128, 128>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*",
         "void (anonymous namespace)::flash_bwd_dkdv_tc_kernel<128>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 cons",
         "void (anonymous namespace)::flash_bwd_dq_tc_kernel<128>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*",
         "void (anonymous namespace)::flash_attention_bwd_dkdv_kernel<__nv_bfloat16, 128>(__nv_bfloat16 const*, __nv_bfloat16 cons",
