@@ -90,7 +90,7 @@ def device_ms_by_kind(prof, vocab: int) -> dict:
             out["flash_forward"] += self_ms
         elif "wkv_bwd_" in e.key:
             out["wkv_backward"] += self_ms
-        elif "wkv_kernel" in e.key:
+        elif "wkv_states_kernel" in e.key or "wkv_out_kernel" in e.key:
             out["wkv_forward"] += self_ms
     return out
 

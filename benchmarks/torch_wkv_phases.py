@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time of the port's chunked WKV kernel goes, phase by phase.
+"""Where the time of the WKV forward's state walk goes, phase by phase.
 
     python3 benchmarks/torch_wkv_phases.py
 
 Needs an NVIDIA Hopper card and the CUDA toolkit.  Builds two copies of
-``src/repro_torch/csrc/wkv.cu`` into ``build/wkv_phases/``: the kernel as it
-is, and one in which thread 0 of block (0, 0) reads ``clock64()`` at the top
-of each chunk and after each barrier of the chunk loop, summing the cycles
-between them.  At RWKV6-1.6B's width (BH = 64, S = 4096, K = 64, f32) it
-prints, for every compiled chunk length, the kernel's time (median of 10
-launches, CUDA events) and the cycles per chunk of each phase:
+``src/repro_torch/csrc/wkv.cu`` into ``build/wkv_phases/``: the source as
+it is, and one in which thread 0 of block (0, 0) of the state walk
+(``wkv_states_kernel``) reads ``clock64()`` at four points of each step of
+its loop over chunks, summing the cycles between them.  At RWKV6-1.6B's
+width (BH = 64, S = 4096, K = 64, f32) it prints, for every compiled chunk
+length, the forward's time (both kernels; median of 10 launches, CUDA
+events) and the walk's cycles per chunk of each phase:
 
-    [0] from the last barrier of the chunk before to the top of the loop
-        (out and the state update)
-    [1] waiting for the chunk's copies and the first barrier
-    [2] issuing the next chunk's copies, the scan of Lambda, the second barrier
-    [3] A, r' and k', the third barrier
+    [0] from the fragments formed to the top of the loop: chunk c's
+        product k'^T v on the tensor cores, its chunk-start state written
+        and the state updated
+    [1] waiting for chunk c + 1's copies and the barrier
+    [2] issuing the copies of chunk c + D
+    [3] forming chunk c + 1's fragments: Lambda and k'
 
 One JSON line per chunk length, then the card's name and power limit.
 """
@@ -44,14 +46,18 @@ MARK = ("if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0) {{ long lon
 
 
 def with_clocks(src: str) -> str:
-    """The source with a clock read at the loop top and after each barrier
-    of the chunk loop, and ``wkv_phases(long long*)`` to read the sums."""
+    """The source with clock reads in the state walk's loop, and
+    ``wkv_phases(long long*)`` to read the sums."""
     loop = src.index("for (int c = 0; c < n_chunks; ++c) {")
-    end = src.index("if (owner) {\n    float* so = state_out")
+    end = src.index("float* so = state_out")
     body = src[loop:end]
-    marks = iter(range(1, 8))
-    body = re.sub(r"__syncthreads\(\);[^\n]*", lambda m: m.group(0) + "\n    " + MARK.format(next(marks)), body)
-    body = body.replace("{", "{\n    " + MARK.format(0), 1)
+    anchors = (("{", 0), ("__syncthreads();", 1), ("issue(c + D);", 2), ("form(c + 1);", 3))
+    at = 0
+    for anchor, mark in anchors:  # each mark after the first line that ends with its anchor
+        at = body.index(anchor, at) + len(anchor)
+        eol = body.index("\n", at) if anchor != "{" else at
+        body = body[:eol] + "\n    " + MARK.format(mark) + body[eol:]
+        at = eol + 1
     return ("#include <cuda_runtime.h>\n__device__ long long g_phases[8];\n" + src[:loop]
             + "long long prof[8] = {}; long long prof_t = clock64();\n  " + body
             + "if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0)\n"
@@ -64,7 +70,7 @@ def build(name: str, src: str) -> ctypes.CDLL:
     OUT.mkdir(parents=True, exist_ok=True)
     cu, so = OUT / f"{name}.cu", OUT / f"lib{name}.so"
     cu.write_text(src)
-    subprocess.run([_build.toolkit_tool("nvcc"), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+    subprocess.run([_build.toolkit_tool("nvcc"), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so), str(cu)],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
     lib.wkv_launch.restype = ctypes.c_int
@@ -87,9 +93,11 @@ def main() -> int:
     wlog = -torch.exp(torch.randn(SHAPE, generator=gen, device="cuda").clamp(-8, 4))
     u = torch.randn((kd,), generator=gen, device="cuda")
     out, state = torch.empty_like(r), torch.empty((bh, kd, kd), device="cuda")
-    # one u for all rows (u_rows = 1), zero initial state (s0 null), no chunk-start states
-    ptrs = [t.data_ptr() for t in (r, k, v, wlog, u)] + [1, None, out.data_ptr(), state.data_ptr(), None]
     for chunk in CHUNKS:
+        # one u for all rows (u_rows = 1), zero initial state (s0 null), the chunk-start states to scratch
+        states = torch.empty((bh, seq // chunk, kd, kd), device="cuda")
+        ptrs = [t.data_ptr() for t in (r, k, v, wlog, u)] + [1, None, out.data_ptr(), state.data_ptr(),
+                                                             states.data_ptr()]
         row = {"chunk": chunk, "shape": SHAPE}
         for name, lib in (("ms", plain), ("clocked_ms", clocked)):
             def launch():

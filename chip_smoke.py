@@ -17,7 +17,9 @@ Phases, one JSON line each:
    ``nvcc`` each, and one for each of the stencil probe's three variants,
    all started together), with build seconds, registers and spills per
    thread of every instantiation (the staged and the direct stencil kernel
-   each; beside the IR's assumption for the two paper kernels) and the
+   each; the WKV forward's state walk and output kernel, with their shared
+   bytes, at every compiled (chunk, K); beside the IR's assumption for the
+   two paper kernels) and the
    count of tensor-core instructions in each kernel's SASS (``cuobjdump
    -sass``): ``HMMA`` (``mma.sync``) and ``HGMMA`` (``wgmma``).  A bf16
    flash forward instantiation (``flash_fwd_wgmma_kernel``, every bf16 tile
@@ -34,8 +36,11 @@ Phases, one JSON line each:
    tiles of Hopper's kernel reach past S), and every bf16 tile at S = 2048,
    D = 128, (Hq, Hkv) = (10, 2), causal, where rows from 1024 on exist; every
    compiled WKV (chunk, K), output and final state, at S = 128 and at
-   S = 1024 (64 chunks of 16, so the double buffer turns over many times).
-   Every compiled WKV (chunk, K) again with a bonus per head and a random
+   S = 1024 (64 chunks of 16, so the state walk's stages turn over many
+   times), each also with the chunk-start states kept (held against the
+   f64 recurrence's, and out and the final state the same bits as the
+   call without them).  Every compiled WKV (chunk, K) again, both ways, with
+   a bonus per head and a random
    initial state (the models' form), and the model's own kernel calls at
    S = 100 (padded to 128 for attention, 112 for WKV) against the plain
    versions on the unpadded inputs.  The flash backward kernel at every
@@ -65,10 +70,13 @@ Phases, one JSON line each:
    chunk at the main shape), each against its bound, and the kernel's
    median single launch, as the port's earlier times were taken
    (``ms_one_launch``, beside the attention and WKV kernels' times before
-   their redesign, ``pr12_ms``; attention also beside the ``mma.sync``
-   kernel that Hopper's replaced, ``pr26_ms``, with TFLOP/s at 4 D and at
+   their redesign, ``pr12_ms``; both also beside the kernels that Hopper's
+   designs replaced, ``pr26_ms``; attention with TFLOP/s at 4 D and at
    6 D flops a pair, the design's bound at 6 D beside the 4 D one, and the
-   registers, spills and shared bytes of the tile it ran).  The stencil's staged and direct kernels
+   registers, spills and shared bytes of the tile it ran; the WKV with the
+   design's bound at each chunk (the states written and read, k, v and wlog
+   read twice) beside the function's, and the registers, spills and shared
+   bytes of its state walk and output kernel).  The stencil's staged and direct kernels
    are timed in turns (direct, staged, staged, direct), beside the staged
    block's shared memory, the card's blocks per SM for it and the
    estimator's wave.  The paper line also carries ``select_block``'s host
@@ -429,9 +437,11 @@ WKV_FLOPS_PER_TOKEN = 6  # times K^2 per head: the stepwise recurrence
 # redesign for Hopper (f32 scalar kernels; NVIDIA H100 80GB HBM3, 700 W),
 # shown beside each run's own; taken as ``time_one_launch_ms`` takes them
 PR12_MS = {"flash_attention": 6.5022, "wkv": 2.7553}
-# the bf16 flash forward's time at the main shape before its redesign for
-# Hopper, on the mma.sync kernel (NVIDIA H100 80GB HBM3, 700 W), as ``ms``
-PR26_MS = {"flash_attention": 0.9802}
+# the bf16 flash forward's and the WKV forward's times at the main shapes
+# before their redesign for Hopper (the flash forward on mma.sync, the WKV
+# forward as one kernel a (batch*head, 16 columns) walking every chunk; NVIDIA
+# H100 80GB HBM3, 700 W), as ``ms``
+PR26_MS = {"flash_attention": 0.9802, "wkv": 1.2214}
 KERNELS = {  # name: (launch counter, CUDA source, TPU kernel it replaces)
     "stencil25": (st_kernel.stencil25_cuda, "src/repro_torch/csrc/stencil25.cu",
                   "src/repro/kernels/stencil25/kernel.py:24"),
@@ -572,7 +582,8 @@ def phase_build() -> dict:
                     attn_kernel.bwd_kernel_attributes(dtype, d, which)
     for chunk in wkv_kernel.CHUNKS:
         for kd in wkv_kernel.HEAD_DIMS:
-            regs[f"wkv L{chunk} K{kd}"] = wkv_kernel.kernel_attributes(chunk, kd)
+            for which in wkv_kernel.FWD_KERNELS:  # the state walk and the output kernel
+                regs[f"wkv_{which} L{chunk} K{kd}"] = wkv_kernel.kernel_attributes(chunk, kd, which)
             regs[f"wkv_bwd L{chunk} K{kd}"] = wkv_kernel.bwd_kernel_attributes(chunk, kd)
     for name, attrs in regs.items():
         if attrs["local_bytes"]:
@@ -587,6 +598,8 @@ def phase_build() -> dict:
     emit({"phase": "build", "wall_s": wall, "stencil25_f64_spills": stencil_f64_spills,
           "flash_attention_spills": flash_spills,
           "wkv_bwd_spills": {n: a["local_bytes"] for n, a in regs.items() if n.startswith("wkv_bwd")},
+          "wkv_fwd_spills": {n: a["local_bytes"] for n, a in regs.items()
+                             if n.startswith(("wkv_states", "wkv_out")) and a["local_bytes"]},
           "nvcc_s": {n: lib.build_seconds for n, lib in libs.items()},
           "ir_regs_per_thread": {"stencil25": appspec.star3d_ir((32, 4, 8)).regs_per_thread,
                                  "lbm_d3q15": appspec.lbm_d3q15_ir((32, 4, 4)).regs_per_thread},
@@ -856,15 +869,37 @@ def attn_reading(got: torch.Tensor, plain: torch.Tensor) -> dict:
             "max_ratio": rule_ratio(got, plain, ATTN_RULE), "rule": rule_text(ATTN_RULE)}
 
 
+def wkv_with_states(r, k, v, wlog, u, s0, chunk: int, without: tuple) -> dict:
+    """The forward with its chunk-start states kept, as ``WKVFn``'s forward
+    keeps them: out and the final state against the plain version's and the
+    states against the f64 recurrence's, by ``WKV_RULE``, and whether out
+    and the final state are the bits of ``without``, the same call with the
+    states to scratch."""
+    bh, seq, kd = r.shape
+    out, state = torch.empty_like(r), torch.empty((bh, kd, kd), device=r.device)
+    states = torch.empty((bh, seq // chunk, kd, kd), device=r.device)
+    wkv_kernel._launch_forward(r, k, v, wlog, u, s0, out, state, states, chunk)
+    plain = wkv.wkv_plain(r, k, v, wlog, u, s0)
+    start = torch.zeros((bh, kd, kd), device=r.device) if s0 is None else s0
+    res = wkv_reading((out, state, states), (*plain, wkv_f64_chunk_states(r, k, v, wlog, u, start, chunk)))
+    res["same_bits_as_without"] = bool(torch.equal(out, without[0]) and torch.equal(state, without[1]))
+    if not res["same_bits_as_without"]:
+        res["max_ratio"] = math.inf  # the states must not change what is computed
+    return res
+
+
 def check_wkv(gen: torch.Generator) -> dict:
     """Every compiled (chunk, K), output and final state, against
-    ``wkv_plain`` by the elementwise rule, at each of ``WKV_CHECK_SHAPES``."""
+    ``wkv_plain`` by the elementwise rule, at each of ``WKV_CHECK_SHAPES``;
+    and again with the chunk-start states kept, those held too."""
     res = {}
     for (bh, seq), kd in itertools.product(WKV_CHECK_SHAPES, wkv_kernel.HEAD_DIMS):
         inputs = wkv_inputs(gen, bh, seq, kd)
         plain = wkv.wkv_plain(*inputs)
         for chunk in wkv_kernel.CHUNKS:
-            res[f"wkv L{chunk} K{kd} S{seq}"] = wkv_reading(wkv_kernel.wkv_cuda(*inputs, chunk=chunk), plain)
+            got = wkv_kernel.wkv_cuda(*inputs, chunk=chunk)
+            res[f"wkv L{chunk} K{kd} S{seq}"] = wkv_reading(got, plain)
+            res[f"wkv with states L{chunk} K{kd} S{seq}"] = wkv_with_states(*inputs, None, chunk, got)
     return res
 
 
@@ -879,8 +914,10 @@ def check_wkv_heads(gen: torch.Generator) -> dict:
         s0 = torch.randn((bh, kd, kd), generator=gen, device="cuda")
         plain = wkv.wkv_plain(r, k, v, wlog, u, s0)
         for chunk in wkv_kernel.CHUNKS:
-            res[f"wkv per-head u, s0 L{chunk} K{kd} S128"] = wkv_reading(
-                wkv_kernel.wkv_cuda(r, k, v, wlog, u, chunk=chunk, s0=s0), plain)
+            got = wkv_kernel.wkv_cuda(r, k, v, wlog, u, chunk=chunk, s0=s0)
+            res[f"wkv per-head u, s0 L{chunk} K{kd} S128"] = wkv_reading(got, plain)
+            res[f"wkv per-head u, s0, with states L{chunk} K{kd} S128"] = wkv_with_states(
+                r, k, v, wlog, u, s0, chunk, got)
     return res
 
 
@@ -988,6 +1025,16 @@ def wkv_bound(r: torch.Tensor, u: torch.Tensor, with_s0: bool) -> tuple[float, s
     bh, seq, kd = r.shape
     n_bytes = 4.0 * (5 * bh * seq * kd + u.numel() + (1 + with_s0) * bh * kd * kd)
     return bound_ms(n_bytes, float(WKV_FLOPS_PER_TOKEN * kd * kd * bh * seq), torch.float32)
+
+
+def wkv_design_bound(r: torch.Tensor, u: torch.Tensor, with_s0: bool, chunk: int) -> float:
+    """The least time of the forward's own design at ``chunk``: the function's
+    bytes, k, v and wlog read a second time (by the state walk and by the
+    output kernel), and the chunk-start states (4 K / chunk bytes a token
+    and channel) written by the walk and read by the output kernel."""
+    bh, seq, kd = r.shape
+    n_bytes = 4.0 * ((8 + 2 * kd / chunk) * bh * seq * kd + u.numel() + (1 + with_s0) * bh * kd * kd)
+    return bound_ms(n_bytes, float(WKV_FLOPS_PER_TOKEN * kd * kd * bh * seq), torch.float32)[0]
 
 
 def conv3d_star(src: torch.Tensor, r: int) -> torch.Tensor:
@@ -1683,7 +1730,11 @@ def phase_main_wkv() -> dict:
     ms = chunks_ms[f"L{chunk}"]
     one_ms = time_one_launch_ms(lambda: wkv_kernel.wkv_cuda(*inputs, chunk=chunk))
     res = {"name": "wkv", "shape": WKV_SHAPE, "dtype": "float32", "chunk": chunk, "ms": ms,
-           "ms_one_launch": one_ms, "pr12_ms": PR12_MS["wkv"], "bound_ms": b_ms, "bound_by": b_by,
+           "ms_one_launch": one_ms, "pr12_ms": PR12_MS["wkv"], "pr26_ms": PR26_MS["wkv"],
+           "bound_ms": b_ms, "bound_by": b_by,
+           "design_bound_ms": {f"L{c}": wkv_design_bound(inputs[0], inputs[4], False, c)
+                               for c in wkv.config_space(bh, seq, kd)},
+           "kernel": {w: wkv_kernel.kernel_attributes(chunk, kd, w) for w in wkv_kernel.FWD_KERNELS},
            "plain_ms": plain_ms, "library_ms": None, "chunks_ms": chunks_ms,
            "order_matches": in_measured_order(chunks_ms), "max_abs_err": err, "max_ratio": ratio,
            "rule": rule_text(WKV_RULE), "launches": launches["wkv"]}
@@ -1754,6 +1805,7 @@ def captured_reading(kernel_name: str, args: tuple, kw: dict) -> dict:
     res = {"shape": list(r.shape), "u": list(u.shape), "chunk": chunk, **wkv_reading(got, plain),
            "ms": time_ms(lambda: wkv_kernel.wkv_cuda(r, k, v, wlog, u, chunk=chunk, s0=s0))}
     res["bound_ms"], res["bound_by"] = wkv_bound(r, u, with_s0=True)
+    res["design_bound_ms"] = wkv_design_bound(r, u, True, chunk)
     res["wkv_rule_ratio"] = res.pop("max_ratio")  # reported; no f32 result meets it here
     res["max_ratio"] = max(scaled_ratio(a, b, WKV_SCALED_RULE) for a, b in zip(got, plain))
     res["rule"] = f"|a-b| <= {WKV_SCALED_RULE[0]} rms(b) + {WKV_SCALED_RULE[1]}|b|"

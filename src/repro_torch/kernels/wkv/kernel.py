@@ -2,21 +2,23 @@
 ``csrc/wkv_bwd.cu``).
 
 The forward replaces the Pallas TPU kernel
-``repro.kernels.wkv.kernel.wkv_pallas``: one thread block per
-(batch*head, 16 columns of v), a loop over chunks of L steps inside it, and
-the block's (K, 16) slice of the f32 state in registers across the loop.
-The bonus ``u`` is one row for all (batch*head) rows or one per head, and
-an initial state ``s0`` may seed the registers (the models' prefill).  A
-tensor on the CPU goes to the plain version
+``repro.kernels.wkv.kernel.wkv_pallas``.  One call launches two kernels on
+the current stream: a state walk, one thread block per (batch*head, 16 rows
+of the state), which walks the chunks of L steps in order and writes the
+state at each chunk's start, and an output kernel, one block per (chunk,
+batch*head), which computes each chunk's outputs from its saved state.  The
+bonus ``u`` is one row for all (batch*head) rows or one per head, and an
+initial state ``s0`` may seed the walk (the models' prefill).  A tensor on
+the CPU goes to the plain version
 (:func:`~repro_torch.kernels.wkv.ref.wkv_plain`), autograd included; a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernels or raises.
 
 Gradients.  Where grad mode is on and an input requires grad, a CUDA call
-goes through :class:`WKVFn`: its forward launches the same kernel and also
-writes the state at each chunk's start, and its backward launches the
-hand-written backward (``csrc/wkv_bwd.cu``, :func:`wkv_bwd_cuda`), which
-the JAX package has no kernel for (it differentiates its scan).  On the CPU
-autograd runs through the plain version.
+goes through :class:`WKVFn`: its forward launches the same kernels and keeps
+the chunk-start states, and its backward launches the hand-written backward
+(``csrc/wkv_bwd.cu``, :func:`wkv_bwd_cuda`), which the JAX package has no
+kernel for (it differentiates its scan).  On the CPU autograd runs through
+the plain version.
 
 Fake tensors.  Each launch goes through a ``torch.library`` custom op
 (``repro_torch::wkv_fwd``, ``repro_torch::wkv_bwd``) whose implementation
@@ -44,6 +46,7 @@ from .ref import wkv_bwd_plain, wkv_plain
 CHUNKS = (16, 32, 64)
 HEAD_DIMS = (16, 32, 64)
 BWD_ROWS = 16  # rows of the state a backward block owns: K / 16 blocks a row
+FWD_KERNELS = ("states", "out")  # the forward's state walk and output kernel, by wkv_attributes' index
 
 
 @functools.cache
@@ -55,7 +58,7 @@ def _lib() -> ctypes.CDLL:
         + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     lib.wkv_attributes.restype = ctypes.c_int
-    lib.wkv_attributes.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.wkv_attributes.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4
     return lib
 
 
@@ -104,7 +107,13 @@ def wkv_cuda(r, k, v, wlog, u, chunk: int = 64, s0=None) -> tuple[torch.Tensor, 
     per head (H, K) (row ``bh % H`` for row ``bh = b H + h``), from the
     state s0 (BH, K, K), or zeros where it is None.  Returns ``(out, s)``:
     out (BH, S, K) and the final state (BH, K, K).  In grad mode, where an
-    input requires grad, a CUDA call runs :class:`WKVFn`."""
+    input requires grad, a CUDA call runs :class:`WKVFn`.
+
+    On the card the output kernel reads the state at each chunk's start,
+    which the state walk writes: without grad they go to scratch, (BH, S /
+    chunk, K, K) f32 from ``torch.empty``, 4 K² / chunk bytes a token and
+    row (at ``serve_rwkv``'s (128, 512, 64): 67 MB at chunk 16, 17 MB at
+    64), freed when the call returns."""
     _check(r, k, v, wlog, u, s0)
     bh, seq, kd = r.shape
     if seq % chunk:
@@ -117,14 +126,16 @@ def wkv_cuda(r, k, v, wlog, u, chunk: int = 64, s0=None) -> tuple[torch.Tensor, 
         return WKVFn.apply(r, k, v, wlog, u, s0, chunk)
     out = torch.empty_like(r)
     state = torch.empty((bh, kd, kd), dtype=torch.float32, device=r.device)
-    _launch_forward(r, k, v, wlog, u, s0, out, state, None, chunk)
+    states = torch.empty((bh, seq // chunk, kd, kd), dtype=torch.float32, device=r.device)  # scratch
+    _launch_forward(r, k, v, wlog, u, s0, out, state, states, chunk)
     return out, state
 
 
 def _launch_forward(r, k, v, wlog, u, s0, out, state, states, chunk: int) -> None:
     """Launches the forward on checked CUDA tensors into ``out``, the final
-    ``state`` and, where given, ``states`` (BH, S / chunk, K, K): the state
-    at each chunk's start."""
+    ``state`` and ``states`` (BH, S / chunk, K, K), the state at each
+    chunk's start, which the output kernel reads (never None: the C launch
+    refuses a null one)."""
     torch.ops.repro_torch.wkv_fwd(r, k, v, wlog, u, s0, out, state, states, chunk)
 
 
@@ -270,15 +281,18 @@ def _backward_flops(r, *args, out_shape=None, **kwargs) -> int:
     return wkv_flops(r, 12)
 
 
-def kernel_attributes(chunk: int, kd: int) -> dict:
-    """Registers and local (spill) bytes per thread, and the largest block,
-    of the compiled instantiation."""
-    vals = [ctypes.c_int() for _ in range(3)]
-    err = _lib().wkv_attributes(chunk, kd, *(ctypes.byref(x) for x in vals))
+def kernel_attributes(chunk: int, kd: int, which: str) -> dict:
+    """Registers and local (spill) bytes per thread, the largest block and
+    the dynamic shared memory of the forward's state walk (``which`` =
+    ``"states"``, ``wkv_states_kernel``) or output kernel (``"out"``,
+    ``wkv_out_kernel``) at (chunk, K)."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    err = _lib().wkv_attributes(chunk, kd, FWD_KERNELS.index(which), *(ctypes.byref(x) for x in vals))
     if err:
-        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
-    regs, local_bytes, max_threads = (x.value for x in vals)
-    return {"registers": regs, "local_bytes": local_bytes, "max_threads_per_block": max_threads}
+        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err} ({which}, chunk {chunk}, K {kd})")
+    regs, local_bytes, max_threads, smem = (x.value for x in vals)
+    return {"registers": regs, "local_bytes": local_bytes, "max_threads_per_block": max_threads,
+            "smem_bytes": smem}
 
 
 def bwd_kernel_attributes(chunk: int, kd: int) -> dict:

@@ -3,7 +3,7 @@
 Counterpart of ``repro.kernels.wkv.ops``.  The JAX package ranks chunk
 lengths with its TPU estimator (VMEM, MXU), which says nothing about this
 kernel, and the registry's ``wkv_gpu_ir`` models the intra-chunk pass alone,
-not the fused kernel with its state.  So the chunk is not ranked: it is
+not the forward's kernels with their state.  So the chunk is not ranked: it is
 fixed by measurement.  :data:`MEASURED_ORDER` lists the compiled chunks by
 their time on an NVIDIA H100 80GB HBM3 (700 W) at RWKV6-1.6B's width (32
 heads of K = 64 at batch 2: BH = 64, S = 4096, f32), and
@@ -18,8 +18,9 @@ from ...core import tpu_estimator as te
 from .kernel import HEAD_DIMS, wkv_cuda
 from .ref import wkv_plain
 
-# fastest first, by chip_smoke.py's per-chunk times at that shape with the
-# kernel split over v's columns (PERF.md, Findings)
+# fastest first, by chip_smoke.py's per-chunk times at that shape, and by
+# benchmarks/torch_wkv_turns.py's forward and backward together at the
+# training shape, with the two-kernel forward (PERF.md, Findings)
 MEASURED_ORDER = (16, 32, 64)
 
 

@@ -324,7 +324,8 @@ H100_KERNELS = {
         "void (anonymous namespace)::flash_bwd_dkdv_tc_kernel<128>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 cons",
         "void (anonymous namespace)::flash_bwd_dq_tc_kernel<128>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*",
         "void (anonymous namespace)::flash_attention_bwd_dkdv_kernel<__nv_bfloat16, 128>(__nv_bfloat16 const*, __nv_bfloat16 cons",
-        "void (anonymous namespace)::wkv_kernel<16, 64>(float const*, float const*, float const*, float const*, float const*, int",
+        "void (anonymous namespace)::wkv_states_kernel<16, 64>(float const*, float const*, float const*, float const*, float*, f",
+        "void (anonymous namespace)::wkv_out_kernel<16, 64>(float const*, float const*, float const*, float const*, float const*,",
         "void (anonymous namespace)::wkv_bwd_kernel<16, 64>(float const*, float const*, float const*, float const*, float const*, i",
         "(anonymous namespace)::wkv_bwd_reduce_kernel(float const*, float*, int, long)",
     ],
