@@ -1,0 +1,9 @@
+"""``idle_share.train``: the traced steps' span, first device interval to
+last, less the union of the device's intervals, as a share of the span."""
+
+
+def read(ctx):
+    s = ctx.get("summary")
+    if ctx.get("kind") != "train" or s is None or not s.span_s:
+        return None
+    return 100.0 * (s.span_s - s.busy_s) / s.span_s
