@@ -17,13 +17,15 @@ paths named on the command line, it:
 * takes the warm step on the card.  A serve path builds the model as
   ``benchmarks/torch_serve_profile.py`` does, runs one prefill to warm up,
   then times ``REPS`` prefills with CUDA events (its ``events_ms``).  The
-  train paths set up as ``benchmarks/torch_train_profile.py`` does (AdamW,
-  ``make_train_step``) and times its ``STEPS`` steps after its ``WARMUP``;
+  train paths set up AdamW and ``make_train_step`` at
+  ``launch.one_card``'s training shape and time ``STEPS`` steps after
+  ``WARMUP``;
 * traces one more under ``torch.profiler`` and sums the device time by the
-  DAG's node classes (``repro_torch.graph.classes``; each Mamba2 scan runs
-  inside a ``mixer:`` range, so its ATen passes count as the mixer), beside
-  the device's busy time and idle share (``torch_serve_profile.read_trace``)
-  and, for training, ``torch_train_profile.device_ms_by_kind``.
+  DAG's node classes (``repro_torch.graph.classes``; the program's
+  ``mixer:*`` spans open a profiler range around each mixer's call, so the
+  Mamba2 scan's ATen passes count as the mixer), beside the device's busy
+  time and idle share (``torch_serve_profile.read_trace``) and, for
+  training, the device ms by span path (``bench/spans.py``, totals).
 
 One JSON line per path: predicted and measured seconds, whole step and by
 class, their ratios, the host seconds of the ``step_time`` call, and every
@@ -35,7 +37,6 @@ to ``results/step_time_check.json`` (``--out``); the trace goes to
 from __future__ import annotations
 
 import argparse
-import contextlib
 import gc
 import json
 import statistics
@@ -46,21 +47,22 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "benchmarks"))
+sys.path.insert(0, str(ROOT))
 
 import torch_serve_profile as serve_profile  # noqa: E402
-import torch_train_profile as train_profile  # noqa: E402
+from bench import spans  # noqa: E402
 from repro_torch.configs import SHAPES, get_arch  # noqa: E402
 from repro_torch.data import SyntheticTokenDataset, to_device  # noqa: E402
 from repro_torch.graph import step_time  # noqa: E402
-from repro_torch.graph.classes import NODE_CLASSES, MIXER_RANGE, measured_by_class, predicted_by_class  # noqa: E402
-from repro_torch.launch.one_card import full_width_paths, one_card_config, one_card_train_shape  # noqa: E402
+from repro_torch.graph.classes import NODE_CLASSES, measured_by_class, predicted_by_class  # noqa: E402
+from repro_torch.launch.one_card import (TRAIN_SHAPE, full_width_paths, one_card_config,  # noqa: E402
+                                         one_card_train_shape)
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models import mamba2 as model_mamba2  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.train import make_train_step  # noqa: E402
@@ -68,31 +70,15 @@ from repro_torch.train import make_train_step  # noqa: E402
 MACHINE = "h100"
 PATHS = full_width_paths()  # chip_smoke.py's: path -> (arch, batch, seq, kind)
 REPS = 3
+WARMUP, STEPS = 2, 3  # training steps before the timed ones, and timed
 OUT = ROOT / "results" / "step_time_check.json"
 TRACE = ROOT / "build" / "step_time_check_trace.json"
 
 
-@contextlib.contextmanager
-def scan_as_mixer():
-    """Run every Mamba2 scan inside a ``mixer:`` profiler range."""
-    original = model_mamba2._ssd_chunked
-
-    def ranged(*args, **kw):
-        with record_function(MIXER_RANGE + "ssd_scan"):
-            return original(*args, **kw)
-
-    model_mamba2._ssd_chunked = ranged
-    try:
-        yield
-    finally:
-        model_mamba2._ssd_chunked = original
-
-
-def traced(fn, record_shapes: bool = False):
+def traced(fn):
     """``fn`` under ``torch.profiler``: the profile, its Chrome events, and
     ``torch_serve_profile.read_trace``'s summary of them."""
-    with scan_as_mixer(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                                  record_shapes=record_shapes) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     TRACE.parent.mkdir(parents=True, exist_ok=True)
@@ -158,24 +144,23 @@ def check_serve(path: str) -> dict:
 
 def check_train(path: str) -> dict:
     cfg = get_arch(PATHS[path][0])
-    shape, reduced = one_card_train_shape(SHAPES[train_profile.SHAPE])
+    shape, reduced = one_card_train_shape(SHAPES[TRAIN_SHAPE])
     rep, host_s = predict(cfg, shape.global_batch, shape.seq_len, "train")
     model = build_model(cfg, device="cuda", seed=0)
     adamw = make_optimizer("adamw")
     step = make_train_step(model, adamw)
     state = adamw.init(dict(model.named_parameters()))
     dataset = SyntheticTokenDataset(cfg.vocab, shape.seq_len, shape.global_batch, seed=0)
-    n = train_profile.WARMUP + train_profile.STEPS
+    n = WARMUP + STEPS
     batches = [to_device(dataset.batch(s), "cuda") for s in range(n + 1)]
-    for b in batches[:train_profile.WARMUP]:
+    for b in batches[:WARMUP]:
         step(state, b)
     torch.cuda.synchronize()
-    step_ms = [serve_profile.events_ms(lambda b=b: step(state, b)) for b in batches[train_profile.WARMUP:n]]
-    prof, events, summary = traced(lambda: step(state, batches[-1]), record_shapes=True)
+    step_ms = [serve_profile.events_ms(lambda b=b: step(state, b)) for b in batches[WARMUP:n]]
+    prof, events, summary = traced(lambda: step(state, batches[-1]))
     res = line(path, cfg, reduced, shape.global_batch, shape.seq_len, "train", rep, host_s, step_ms,
-               f"warm step, median of {train_profile.STEPS} after {train_profile.WARMUP}, CUDA events",
-               events, summary)
-    res["device_ms_by_kind"] = train_profile.device_ms_by_kind(prof, cfg.vocab)
+               f"warm step, median of {STEPS} after {WARMUP}, CUDA events", events, summary)
+    res["device_ms_by_span"] = {p: 1e3 * s for p, s in spans.totals(spans.attribute(events).by_span).items()}
     del model, state, batches, prof
     gc.collect()
     torch.cuda.empty_cache()

@@ -8,9 +8,11 @@ whole-model prediction beside the step the card takes, class by class.
   bf16 products, the small-N GEMV-like kernels, the split-K reductions);
 * **mixer** — the port's flash-attention forward and backward, its WKV
   forward and backward, and every kernel launched inside a
-  ``record_function`` range whose name starts with :data:`MIXER_RANGE` (the
-  Mamba2 scan's passes are ATen kernels, so only the range says they are the
-  scan's);
+  ``record_function`` range whose name starts with :data:`MIXER_RANGE`: the
+  model's ``mixer:attention``, ``mixer:wkv`` and ``mixer:ssd_scan`` spans
+  (``obs.trace``) open one around each call of a mixer, so the ATen kernels
+  that pad and lay out its inputs count as the mixer's, and so do the
+  Mamba2 scan's passes, which are ATen kernels alone;
 * **elementwise** — everything else: casts and copies, norms, activations,
   reductions, the loss, the optimizer, memory copies and fills.
 
@@ -20,8 +22,9 @@ from __future__ import annotations
 
 import re
 
+from ..obs.trace import MIXER_RANGE  # the spans around the mixers' calls open profiler ranges of this prefix
+
 NODE_CLASSES = ("matmul", "elementwise", "mixer", "collective")
-MIXER_RANGE = "mixer:"  # record_function prefix for a mixer built of ATen kernels
 MIXER_KERNELS = ("flash_fwd_wgmma_kernel", "flash_f32_kernel", "flash_attention_bwd_", "flash_bwd_",
                  "wkv_states_kernel", "wkv_out_kernel", "wkv_bwd_")
 _GEMM = re.compile(r"gemm|gemv|nvjet|xmma|cutlass|cublas|splitkreduce", re.IGNORECASE)

@@ -37,6 +37,7 @@ from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 from ..configs.base import ArchConfig
 from ..kernels.attention import flash_attention
+from ..obs.trace import MIXER_RANGE, span
 from .params import ParamDef
 from .shardctx import constrain, is_dtensor, kernel_placements, merge_heads, on_mesh, shard_local, unflatten
 
@@ -192,7 +193,8 @@ def attention_block(
     k = rope(k, positions, cfg.rope_theta)
     new_cache = None
     if kv_cache is None:
-        out = attention(q, k, v)
+        with span(MIXER_RANGE + "attention"):
+            out = attention(q, k, v)
     else:
         idx = kv_cache["len"]
         ck, cv = kv_cache["k"], kv_cache["v"]
@@ -200,7 +202,8 @@ def attention_block(
         cv[:, idx:idx + S] = v
         new_cache = {"k": ck, "v": cv, "len": idx + S}
         if idx == 0 and S > 1:  # the prefill: square causal attention over the new keys
-            out = attention(q, k, v)
+            with span(MIXER_RANGE + "attention"):
+                out = attention(q, k, v)
         else:
             out = _cached_attention(q, ck, cv, idx)
     y = merge_heads(out) @ p["wo"].to(cdt)

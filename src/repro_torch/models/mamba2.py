@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..obs.trace import MIXER_RANGE, span
 from .layers import rmsnorm
 from .params import ParamDef
 from .shardctx import is_dtensor, kernel_placements, merge_heads, on_mesh, shard_local, unflatten
@@ -148,7 +149,8 @@ def mamba2_block(cfg: ArchConfig, p: Mapping[str, torch.Tensor], x, state: Optio
         h_final = h0 * a[:, :, None, None] + torch.einsum("bn,bhp->bhnp", B_[:, 0].float(), xh_dt[:, 0])
         y = torch.einsum("bn,bhnp->bhp", C_[:, 0].float(), h_final)[:, None]
     else:
-        y, h_final = ssd_chunked(xh_dt, a_log, B_, C_, h0, SSM_CHUNK)
+        with span(MIXER_RANGE + "ssd_scan"):
+            y, h_final = ssd_chunked(xh_dt, a_log, B_, C_, h0, SSM_CHUNK)
     y = y + p["D"].float()[None, None, :, None] * xh.float()
     y = merge_heads(y).to(cdt) * F.silu(z)
     out = rmsnorm(y, p["norm_scale"]) @ p["out_proj"].to(cdt)

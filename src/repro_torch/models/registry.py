@@ -17,6 +17,13 @@ the stacked storage, so nothing is copied).  The parameters are built
 with ``requires_grad=False``, since serving needs no gradients; training
 turns them on with ``model.requires_grad_()`` (``train/step.py``).
 
+Spans (``obs.trace``): ``model.embed``, ``model.mix`` (each block's first
+half: attention, RWKV6's time mix or the Mamba2 block, with its norm and
+residual), ``model.ffn`` (its second half: the MLP or MoE, or RWKV6's
+channel mix), ``model.head`` (the final norm and the f32 logits, counted in
+``obs.metrics``' ``model.head_rows``) and ``model.loss``.  Under remat the
+spans of a layer open again in the backward's recompute.
+
 Remat follows ``cfg.remat`` as the JAX package's ``jax.checkpoint`` does:
 with grad mode on and no cache, each dense/MoE and each RWKV6 layer runs
 under ``torch.utils.checkpoint.checkpoint`` (non-reentrant), and in the
@@ -38,6 +45,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..obs import metrics as obs_metrics
+from ..obs.trace import span
 from .layers import (apply_norm, attention_block, attention_defs, mlp, mlp_defs, moe_block, moe_defs,
                      norm_defs)
 from .mamba2 import CONV_WIDTH, mamba2_block, mamba2_defs
@@ -174,14 +183,17 @@ class DenseBlock(nn.Module):
     def forward(self, x, positions, kv_cache: Optional[dict] = None):
         """Returns (x, the MoE's aux loss or None, the cache)."""
         cfg = self.cfg
-        a, new_cache = attention_block(cfg, self.attn, apply_norm(cfg, self.ln1, x), positions, kv_cache)
-        x = x + a
-        h = apply_norm(cfg, self.ln2, x)
-        if cfg.moe is not None:
-            m, aux = moe_block(cfg, self.moe, h)
-        else:
-            m, aux = mlp(cfg, self.mlp, h), None
-        return x + m, aux, new_cache
+        with span("model.mix"):
+            a, new_cache = attention_block(cfg, self.attn, apply_norm(cfg, self.ln1, x), positions, kv_cache)
+            x = x + a
+        with span("model.ffn"):
+            h = apply_norm(cfg, self.ln2, x)
+            if cfg.moe is not None:
+                m, aux = moe_block(cfg, self.moe, h)
+            else:
+                m, aux = mlp(cfg, self.mlp, h), None
+            x = x + m
+        return x, aux, new_cache
 
 
 class RWKV6Block(nn.Module):
@@ -208,8 +220,10 @@ class Mamba2Block(nn.Module):
         self.ln, self.mamba = _group(state, "ln"), _group(state, "mamba")
 
     def forward(self, x, state: Optional[dict] = None):
-        out, new_state = mamba2_block(self.cfg, self.mamba, apply_norm(self.cfg, self.ln, x), state)
-        return x + out, new_state
+        with span("model.mix"):
+            out, new_state = mamba2_block(self.cfg, self.mamba, apply_norm(self.cfg, self.ln, x), state)
+            x = x + out
+        return x, new_state
 
 
 @dataclass
@@ -290,17 +304,22 @@ class LM(nn.Module):
         frontend and ``frontend_embeds`` (B, F, frontend_dim) are given, the
         first F positions are their projection instead."""
         cdt = _dtype(self.cfg.compute_dtype)
-        # gather the rows first, then cast: the JAX package casts the whole
-        # table before its gather, which gives the same values
-        h = constrain(_rows_of(self.embed, tokens).to(cdt), DP)
-        if self.frontend_proj is not None and frontend_embeds is not None:
-            proj = frontend_embeds.to(cdt) @ self.frontend_proj.to(cdt)
-            h[:, :proj.shape[1]] = proj
+        with span("model.embed"):
+            # gather the rows first, then cast: the JAX package casts the whole
+            # table before its gather, which gives the same values
+            h = constrain(_rows_of(self.embed, tokens).to(cdt), DP)
+            if self.frontend_proj is not None and frontend_embeds is not None:
+                proj = frontend_embeds.to(cdt) @ self.frontend_proj.to(cdt)
+                h[:, :proj.shape[1]] = proj
         return h
 
     def _head(self, h):
-        w = self.embed.T if self.cfg.tie_embeddings else self.unembed
-        return h.float() @ w.float()  # f32 logits
+        """The final norm and the f32 logits of h (B, S, d)."""
+        with span("model.head"):
+            obs_metrics.counter("model.head_rows").inc(h.shape[0] * h.shape[1])
+            h = apply_norm(self.cfg, self.final_norm, h)
+            w = self.embed.T if self.cfg.tie_embeddings else self.unembed
+            return h.float() @ w.float()  # f32 logits
 
     def _hybrid_group(self, g: int, h, positions):
         """Group ``g`` of the hybrid without a cache, under remat: its
@@ -374,7 +393,7 @@ class LM(nn.Module):
         h = self._embed(tokens, frontend_embeds)
         positions = on_mesh(torch.arange(S, device=tokens.device)[None, :].expand(B, S), tokens)
         h, aux = self._run_blocks(h, positions)
-        return self._head(apply_norm(self.cfg, self.final_norm, h)), aux
+        return self._head(h), aux
 
     def loss(self, batch: Mapping[str, torch.Tensor]):
         """(CE + 1e-4 z-loss + 1e-2 aux, {"ce", "aux", "zloss"}) of
@@ -382,10 +401,12 @@ class LM(nn.Module):
         the config has a frontend.  Differentiable: the train step
         (``train/step.py``) takes its gradient."""
         logits, aux = self.forward(batch["tokens"], batch.get("frontend_embeds"))
-        lse, picked = _token_terms(logits, batch["labels"])
-        ce = -(picked - lse).mean()
-        z = lse.square().mean()
-        return ce + 1e-4 * z + 1e-2 * aux, {"ce": ce, "aux": aux, "zloss": z}
+        with span("model.loss"):
+            lse, picked = _token_terms(logits, batch["labels"])
+            ce = -(picked - lse).mean()
+            z = lse.square().mean()
+            loss = ce + 1e-4 * z + 1e-2 * aux
+        return loss, {"ce": ce, "aux": aux, "zloss": z}
 
     def init_cache(self, batch: int, max_len: int):
         cfg = self.cfg
@@ -424,7 +445,7 @@ class LM(nn.Module):
         h, _ = self._run_blocks(h, positions, cache)
         if kv is not None:
             kv.length += S
-        return self._head(apply_norm(self.cfg, self.final_norm, h)), cache
+        return self._head(h), cache
 
 
 def build_model(cfg: ArchConfig, device=None, seed: int = 0, init_depth: Optional[int] = None) -> LM:

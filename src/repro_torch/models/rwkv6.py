@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..kernels.wkv import wkv
 from ..kernels.wkv.kernel import CHUNKS
+from ..obs.trace import MIXER_RANGE, span
 from .layers import layernorm, rmsnorm
 from .params import ParamDef
 from .shardctx import constrain, is_dtensor, kernel_placements, merge_heads, on_mesh, shard_local, unflatten
@@ -124,46 +125,51 @@ def rwkv6_block(cfg: ArchConfig, p: Mapping, x, state: Optional[dict] = None):
     cdt = x.dtype
     tm, cm = p["tm"], p["cm"]
 
-    xa = layernorm(x, p["ln1"])
-    prev_tm = state["shift_tm"] if state is not None else None
-    xs = _token_shift(xa, prev_tm)
+    with span("model.mix"):
+        xa = layernorm(x, p["ln1"])
+        prev_tm = state["shift_tm"] if state is not None else None
+        xs = _token_shift(xa, prev_tm)
 
-    def mix(mu):
-        return xa + (xs - xa) * mu.to(cdt)[None, None, :]
+        def mix(mu):
+            return xa + (xs - xa) * mu.to(cdt)[None, None, :]
 
-    r = unflatten(mix(tm["mu_r"]) @ tm["wr"].to(cdt), -1, (H, K))
-    k = unflatten(mix(tm["mu_k"]) @ tm["wk"].to(cdt), -1, (H, K))
-    v = unflatten(mix(tm["mu_v"]) @ tm["wv"].to(cdt), -1, (H, K))
-    g = F.silu(mix(tm["mu_g"]) @ tm["wg"].to(cdt))
-    wx = mix(tm["mu_w"]).float()
-    # on a mesh, the LoRA's output laid out as the activations before w_base
-    # joins it (a partial sum there cannot meet w_base's split on every
-    # PyTorch version's DTensor)
-    wlora = constrain(torch.tanh(wx @ tm["w_lora_a"].float()) @ tm["w_lora_b"].float(), ("dp", None, "tp"))
-    # data-dependent decay: w = exp(-exp(w_base + lora)), clamped for stability
-    wlog = -torch.exp(torch.clamp(tm["w_base"].float() + wlora, -8.0, 4.0))
-    wlog = unflatten(wlog, -1, (H, K))
-    u = unflatten(tm["u_bonus"].float(), -1, (H, K))
-    s0 = (
-        state["s"].float()
-        if state is not None
-        else on_mesh(torch.zeros((B, H, K, K), dtype=torch.float32, device=x.device), x)
-    )
-    out, s_final = wkv_heads(r.float(), k.float(), v.float(), wlog, u, s0)
-    out = merge_heads(out)
-    out = rmsnorm(out.to(cdt), tm["ln_scale"]) * g
-    y_tm = out @ tm["wo"].to(cdt)
+        r = unflatten(mix(tm["mu_r"]) @ tm["wr"].to(cdt), -1, (H, K))
+        k = unflatten(mix(tm["mu_k"]) @ tm["wk"].to(cdt), -1, (H, K))
+        v = unflatten(mix(tm["mu_v"]) @ tm["wv"].to(cdt), -1, (H, K))
+        g = F.silu(mix(tm["mu_g"]) @ tm["wg"].to(cdt))
+        wx = mix(tm["mu_w"]).float()
+        # on a mesh, the LoRA's output laid out as the activations before w_base
+        # joins it (a partial sum there cannot meet w_base's split on every
+        # PyTorch version's DTensor)
+        wlora = constrain(torch.tanh(wx @ tm["w_lora_a"].float()) @ tm["w_lora_b"].float(), ("dp", None, "tp"))
+        # data-dependent decay: w = exp(-exp(w_base + lora)), clamped for stability
+        wlog = -torch.exp(torch.clamp(tm["w_base"].float() + wlora, -8.0, 4.0))
+        wlog = unflatten(wlog, -1, (H, K))
+        u = unflatten(tm["u_bonus"].float(), -1, (H, K))
+        s0 = (
+            state["s"].float()
+            if state is not None
+            else on_mesh(torch.zeros((B, H, K, K), dtype=torch.float32, device=x.device), x)
+        )
+        r, k, v = r.float(), k.float(), v.float()
+        with span(MIXER_RANGE + "wkv"):
+            out, s_final = wkv_heads(r, k, v, wlog, u, s0)
+        out = merge_heads(out)
+        out = rmsnorm(out.to(cdt), tm["ln_scale"]) * g
+        y_tm = out @ tm["wo"].to(cdt)
 
-    x2 = x + y_tm
-    xb = layernorm(x2, p["ln2"])
-    prev_cm = state["shift_cm"] if state is not None else None
-    xs2 = _token_shift(xb, prev_cm)
-    xk = xb + (xs2 - xb) * cm["mu_k"].to(cdt)[None, None, :]
-    h = torch.square(F.relu(xk @ cm["w_in"].to(cdt)))
-    y_cm = h @ cm["w_out"].to(cdt)
-    new_state = {
-        "shift_tm": xa[:, -1:, :],
-        "shift_cm": xb[:, -1:, :],
-        "s": s_final,
-    }
-    return y_tm + y_cm, new_state
+        x2 = x + y_tm
+    with span("model.ffn"):
+        xb = layernorm(x2, p["ln2"])
+        prev_cm = state["shift_cm"] if state is not None else None
+        xs2 = _token_shift(xb, prev_cm)
+        xk = xb + (xs2 - xb) * cm["mu_k"].to(cdt)[None, None, :]
+        h = torch.square(F.relu(xk @ cm["w_in"].to(cdt)))
+        y_cm = h @ cm["w_out"].to(cdt)
+        new_state = {
+            "shift_tm": xa[:, -1:, :],
+            "shift_cm": xb[:, -1:, :],
+            "s": s_final,
+        }
+        out = y_tm + y_cm
+    return out, new_state

@@ -5,7 +5,9 @@ the port).
 Counters and histograms for the estimation stack: the batched
 estimator's batch sizes, per-batch latency and cache hits and misses, and
 the whole-model estimator's ``graph.estimated`` (estimator calls, one per
-unique kernel) and ``graph.nodes`` (the DAG nodes they price).  Everything
+unique kernel) and ``graph.nodes`` (the DAG nodes they price); and for the
+model stack ``model.head_rows``, the rows (B x S) that each call of the
+model's head multiplies by the vocabulary.  Everything
 is a plain in-process
 object — no exporter, no sampling thread, no dependencies — cheap enough to
 stay always-on (instrumentation sits at phase/batch granularity, never inside

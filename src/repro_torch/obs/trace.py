@@ -1,6 +1,6 @@
-"""Structured tracing for the estimation pipeline: ``repro.obs.trace``'s
-spans, tracer, Chrome-trace export and worker-event export (its counter
-events have no caller in the port).
+"""Structured tracing for the estimation pipeline and the model stack:
+``repro.obs.trace``'s spans, tracer, Chrome-trace export and worker-event
+export (its counter events have no caller in the port), and profiler ranges.
 
 Every phase of an estimation runs inside a nestable :func:`span`, and an
 enabled :class:`Tracer` exports the result as Chrome-trace/Perfetto JSON
@@ -9,10 +9,18 @@ whole-model replay merges its *predicted* timeline into the same tracer
 (``ReplayResult.absorb_into``), so one file shows the estimation and the
 step it predicts (``python -m repro_torch.explore graph --trace PATH``).
 
+The train step, the serving engine and the model open spans at their layer
+boundaries too (``train.*``, ``serve.*``, ``model.*`` and the mixers'
+``mixer:*``).  While ``torch.profiler`` is recording, a span also opens a
+profiler range of its name (``record_function``): it shows in the
+profiler's trace as a ``user_annotation``, on the clock of the kernels and
+of their launches, so device time can be read by span.
+
 * **Near-zero overhead when disabled.**  Tracing is off by default; a
-  disabled :func:`span` is one small-object allocation plus two
-  ``perf_counter`` calls (the duration is still measured: the batched
-  estimator's ``estimate.batch_seconds`` histogram reads it).
+  disabled :func:`span` is one small-object allocation, two
+  ``perf_counter`` calls and one read of the profiler's flag (the duration
+  is still measured: the batched estimator's ``estimate.batch_seconds``
+  histogram reads it).  It calls nothing of the profiler.
 * **Merging timelines.**  :meth:`Tracer.absorb` re-bases another event
   payload's timestamps onto this timeline via the wall-clock epochs both
   sides record (the replay's predicted timeline comes in this way, and so
@@ -34,11 +42,13 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 from typing import Any
 
 __all__ = [
+    "MIXER_RANGE",
     "Span",
     "Tracer",
     "active",
@@ -49,16 +59,37 @@ __all__ = [
     "validate_chrome_trace",
 ]
 
+# the prefix of the spans around the mixers' calls (``mixer:attention``,
+# ``mixer:wkv``, ``mixer:ssd_scan``): ``graph.classes`` counts every kernel
+# launched inside one as the mixer's
+MIXER_RANGE = "mixer:"
+
 # process-global tracer; None = disabled (the common case, checked per span)
 _tracer: Tracer | None = None
 _lock = threading.Lock()
+# torch.autograd.profiler once something has imported torch: obs never
+# imports torch, and a profiler can only be recording after torch is loaded
+_profiler = None
+
+
+def _profiling():
+    """torch's profiler module while ``torch.profiler`` records, else None:
+    one read of its flag (``_is_profiler_enabled``), no call into it."""
+    global _profiler
+    prof = _profiler
+    if prof is None:
+        prof = _profiler = sys.modules.get("torch.autograd.profiler")
+        if prof is None:
+            return None
+    return prof if prof._is_profiler_enabled else None
 
 
 class Span:
     """One timed region.  Always measures its duration (``duration_s`` after
-    exit); records a Chrome-trace event only when a tracer is enabled."""
+    exit); records a Chrome-trace event only when a tracer is enabled, and
+    a profiler range only while ``torch.profiler`` records."""
 
-    __slots__ = ("name", "args", "t0", "duration_s", "_tracer")
+    __slots__ = ("name", "args", "t0", "duration_s", "_tracer", "_range")
 
     def __init__(self, name: str, tracer: Tracer | None, args: dict):
         self.name = name
@@ -66,18 +97,26 @@ class Span:
         self._tracer = tracer
         self.duration_s = 0.0
         self.t0 = 0.0
+        self._range = None
 
     def set(self, **attrs: Any) -> None:
         """Attach attributes/counters to the span (shown in the trace UI)."""
         self.args.update(attrs)
 
     def __enter__(self) -> Span:
+        prof = _profiling()
+        if prof is not None:
+            self._range = prof.record_function(self.name)
+            self._range.__enter__()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> None:
         t1 = time.perf_counter()
         self.duration_s = t1 - self.t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
         if self._tracer is not None:
             self._tracer._record(self.name, self.t0, self.duration_s, self.args)
 

@@ -21,6 +21,12 @@ places each input by its spec tree before the call (jax's ``jit`` with
 output after it, and the step runs under ``sharding_ctx``, so the model's
 ``constrain`` calls redistribute its activations.  The gradient norm is the
 global one: DTensor sums every shard.
+
+The train step opens spans (``obs.trace``): ``train.step`` with ``step``,
+the count of the bundle's calls on the host, and inside it, for each
+microbatch, ``train.forward`` (``model.loss``) and ``train.backward``
+(``autograd.grad``), then ``train.clip`` and ``train.optimizer`` (the
+learning rate and the update).  No span reads a device value.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from ..configs.base import ArchConfig, ShapeConfig
 from ..models.params import P, ShardingRules, param_pspecs, tree_map
 from ..models.registry import LM, _flat
 from ..models.shardctx import is_dtensor, sharding_ctx
+from ..obs.trace import span
 from ..optim.optimizers import Optimizer, clip_by_global_norm, leaf_groups, wsd_schedule
 from .sharding import (axis_size, batch_pspecs, cache_pspecs, layer_specs, mesh_spec, place_model,
                        place_tree, rules_for_mesh)
@@ -133,39 +140,47 @@ def make_train_step(
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     n_micro = cfg.microbatch or 0
+    calls = 0  # the bundle's calls, counted on the host for the spans
 
     def loss_and_grads(b):
-        loss, metrics = model.loss(b)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        if mesh is not None:  # each gradient in its parameter's layout
-            grads = [g.redistribute(mesh, p.placements) if tuple(g.placements) != tuple(p.placements) else g
-                     for g, p in zip(grads, params.values())]
+        with span("train.forward"):
+            loss, metrics = model.loss(b)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, list(params.values()))
+            if mesh is not None:  # each gradient in its parameter's layout
+                grads = [g.redistribute(mesh, p.placements) if tuple(g.placements) != tuple(p.placements) else g
+                         for g, p in zip(grads, params.values())]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, dict(zip(params, grads))
 
     def step(opt_state: dict, batch: dict) -> dict:
-        step_no = opt_state["count"]
-        n_batch = batch["tokens"].shape[0]
-        if n_micro > 1 and n_batch % n_micro == 0:
-            size = n_batch // n_micro
-            grads = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
-            losses, ms = [], []
-            for i in range(n_micro):
-                loss, metrics, g = loss_and_grads({k: v[i * size:(i + 1) * size] for k, v in batch.items()})
-                for n, t in g.items():
-                    grads[n].add_(t)
-                del g
-                losses.append(loss)
-                ms.append(metrics)
-            for t in grads.values():
-                t.div_(n_micro)
-            loss = torch.stack(losses).mean()
-            metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
-        else:
-            loss, metrics, grads = loss_and_grads(batch)
-        grads, gnorm = clip_by_global_norm(grads, grad_clip)
-        lr = wsd_schedule(step_no, peak_lr=peak_lr)
-        optimizer.update(grads, opt_state, params, lr)
-        return dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
+        nonlocal calls
+        calls += 1
+        with span("train.step", step=calls):
+            step_no = opt_state["count"]
+            n_batch = batch["tokens"].shape[0]
+            if n_micro > 1 and n_batch % n_micro == 0:
+                size = n_batch // n_micro
+                grads = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
+                losses, ms = [], []
+                for i in range(n_micro):
+                    loss, metrics, g = loss_and_grads({k: v[i * size:(i + 1) * size] for k, v in batch.items()})
+                    for n, t in g.items():
+                        grads[n].add_(t)
+                    del g
+                    losses.append(loss)
+                    ms.append(metrics)
+                for t in grads.values():
+                    t.div_(n_micro)
+                loss = torch.stack(losses).mean()
+                metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+            else:
+                loss, metrics, grads = loss_and_grads(batch)
+            with span("train.clip"):
+                grads, gnorm = clip_by_global_norm(grads, grad_clip)
+            with span("train.optimizer"):
+                lr = wsd_schedule(step_no, peak_lr=peak_lr)
+                optimizer.update(grads, opt_state, params, lr)
+            return dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
 
     if mesh is None:
         return StepBundle(fn=step)

@@ -15,9 +15,10 @@ out, and the kernel classes that set its predictions beside the card.
   ``tests/golden/graph_zamba2_tpuv5e.txt`` byte for byte, and its other
   subcommands (``lint`` among them) run as the JAX CLI's do;
 * **kernel classes:** ``graph.classes`` sorts kernel names the profiler
-  reported on an H100 (``benchmarks/torch_train_profile.py`` and
-  ``torch_serve_profile.py``) into the DAG's node classes, and sums a
-  trace's device time by class.
+  reported on an H100 (in traced training steps and prefills, and
+  ``benchmarks/torch_serve_profile.py``) into the DAG's node classes, and
+  sums a trace's device time by class, the kernels launched inside a
+  ``mixer:`` range (the program's spans around its mixers) as the mixer's.
 """
 from __future__ import annotations
 
@@ -307,8 +308,8 @@ def test_other_subcommands_exit_2(argv, item, tmp_path, monkeypatch, capsys):
 # --------------------------------------------------------------------------- #
 
 # kernel names as torch.profiler reported them on an NVIDIA H100 80GB HBM3
-# (benchmarks/torch_train_profile.py and torch_serve_profile.py), cut at 120
-# characters as those scripts print them
+# (traced training steps, and benchmarks/torch_serve_profile.py), cut at 120
+# characters as the profiling scripts printed them
 H100_KERNELS = {
     "matmul": [
         "nvjet_tst_128x256_64x4_2x1_v_bz_coopA_NNN",
