@@ -13,8 +13,8 @@ served at full width, and OLMo-1B and RWKV6-1.6B trained at full width.
 Phases, one JSON line each:
 
 1. device  — the card, its count, and ``nvidia-smi``'s name and power limit;
-2. build   — the six kernels built from ``src/repro_torch/csrc`` (one
-   ``nvcc`` each, and one for each of the stencil probe's three variants,
+2. build   — the seven kernel sources built from ``src/repro_torch/csrc``
+   (one ``nvcc`` each, and one for each of the stencil probe's three variants,
    all started together), with build seconds, registers and spills per
    thread of every instantiation (the staged and the direct stencil kernel
    each; the WKV forward's state walk and output kernel, with their shared
@@ -80,7 +80,12 @@ Phases, one JSON line each:
    are timed in turns (direct, staged, staged, direct), beside the staged
    block's shared memory, the card's blocks per SM for it and the
    estimator's wave.  The paper line also carries ``select_block``'s host
-   seconds for both kernels, cold (its ranking's cache cleared) and cached;
+   seconds for both kernels, cold (its ranking's cache cleared) and cached.
+   Last the norm kernels (``csrc/norm.cu``) alone against the eager formula
+   they replace and PyTorch's norms, forward and backward in turns, at the
+   benchmark cells' shapes, LayerNorm and RMSNorm
+   (``benchmarks/torch_norm_turns.py``), y, dx and dw each within
+   ``tests/test_torch_norm.py``'s rule;
 5. probe   — ``benchmarks/torch_stencil_probe.py`` at the stencil's main
    shape: direct, copy-only, unclamped direct and staged kernels in turns;
 6. rank    — ``benchmarks/torch_rank_check.py``: at the paper grids in
@@ -292,6 +297,7 @@ from repro_torch.kernels import stencil25  # noqa: E402
 from repro_torch.kernels import wkv  # noqa: E402
 from repro_torch.kernels.attention import kernel as attn_kernel  # noqa: E402
 from repro_torch.kernels.lbm_d3q15 import kernel as lbm_kernel  # noqa: E402
+from repro_torch.kernels.norm import kernel as norm_kernel  # noqa: E402
 from repro_torch.kernels.stencil25 import kernel as st_kernel  # noqa: E402
 from repro_torch.kernels.wkv import kernel as wkv_kernel  # noqa: E402
 from repro_torch import analysis  # noqa: E402
@@ -322,6 +328,7 @@ from repro_torch.train.step import make_decode_step, make_prefill_step  # noqa: 
 from repro_torch.launch import dryrun  # noqa: E402
 import torch_rank_check as rank_check  # noqa: E402
 import torch_simulate_check as simulate_check  # noqa: E402
+import torch_norm_turns as norm_turns  # noqa: E402
 import torch_stencil_probe as stencil_probe  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -431,7 +438,8 @@ AUDIT_EXPLAIN_CFG = {"block": (64, 2, 8), "fold": (1, 2, 1)}
 # text tokens after the frontend's stub embeddings (n_frontend_tokens of
 # frontend_dim) in the forward of a served config with a frontend
 FRONTEND_TEXT_TOKENS = 256
-OWN_PATH = {"stencil25": "paper", "lbm_d3q15": "paper", "flash_attention": "attention", "wkv": "wkv"}
+OWN_PATH = {"stencil25": "paper", "lbm_d3q15": "paper", "flash_attention": "attention", "wkv": "wkv", "norm": "norm",
+            "norm_bwd": "norm"}
 WKV_FLOPS_PER_TOKEN = 6  # times K^2 per head: the stepwise recurrence
 # the attention and WKV kernels' times at the main shapes before their
 # redesign for Hopper (f32 scalar kernels; NVIDIA H100 80GB HBM3, 700 W),
@@ -456,9 +464,27 @@ KERNELS = {  # name: (launch counter, CUDA source, TPU kernel it replaces)
                             "src/repro/models/layers.py:111"),
     # no TPU kernel: the JAX package differentiates its WKV scan, _wkv_scan
     "wkv_bwd": (wkv_kernel.wkv_bwd_cuda, "src/repro_torch/csrc/wkv_bwd.cu", "src/repro/models/rwkv6.py:62"),
+    # no TPU kernel: the JAX package leaves its norms (layernorm; rmsnorm at :21) to XLA
+    "norm": (norm_kernel.norm_cuda, "src/repro_torch/csrc/norm.cu", "src/repro/models/layers.py:30"),
+    "norm_bwd": (norm_kernel.norm_bwd_cuda, "src/repro_torch/csrc/norm.cu", "src/repro/models/layers.py:30"),
 }
 # launch counters of kernels that no main path may launch
 OFF_PATH = {"stencil25_direct": st_kernel.stencil25_direct_cuda}
+NORMS = ("norm", "norm_bwd")  # every model path runs its norms through these, counted apart from the mixers
+
+
+def mixers(launches: dict) -> dict:
+    """Launch counts less the norm kernels'."""
+    return {n: c for n, c in launches.items() if n not in NORMS}
+
+
+def norm_launches(cfg, train: bool) -> dict:
+    """The norm kernels' launches in one forward (a prefill), or with
+    ``train`` in one training step under remat: each layer's norms (two, or
+    RWKV6's three) twice forward (the recompute) and the final norm once,
+    and each once backward."""
+    n = {"ssm": 3}.get(cfg.family, 2) * cfg.n_layers
+    return {"norm": 2 * n + 1, "norm_bwd": n + 1} if train else {"norm": n + 1, "norm_bwd": 0}
 
 
 def emit(obj: dict) -> None:
@@ -555,11 +581,11 @@ def phase_device() -> str:
 
 
 def phase_build() -> dict:
-    """Builds the six kernels and the stencil probe's variants together;
+    """Builds the seven kernel sources and the stencil probe's variants together;
     returns the probe's libraries."""
     t0 = time.perf_counter()
     probe_jobs = stencil_probe.start_builds()
-    libs = _build.build(tuple(KERNELS))
+    libs = _build.build(tuple(dict.fromkeys(Path(src).stem for _, src, _ in KERNELS.values())))
     probe_libs = stencil_probe.finish_builds(probe_jobs)
     wall = time.perf_counter() - t0
     regs = {}
@@ -585,6 +611,12 @@ def phase_build() -> dict:
             for which in wkv_kernel.FWD_KERNELS:  # the state walk and the output kernel
                 regs[f"wkv_{which} L{chunk} K{kd}"] = wkv_kernel.kernel_attributes(chunk, kd, which)
             regs[f"wkv_bwd L{chunk} K{kd}"] = wkv_kernel.bwd_kernel_attributes(chunk, kd)
+    for dtype in (torch.float32, torch.bfloat16):
+        for vector in (True, False):
+            kind = f"{str(dtype)[6:]} {'16B' if vector else '1 element'}"
+            regs[f"norm_fwd {kind}"] = norm_kernel.kernel_attributes(False, dtype, vector)
+            for aff in (0, 1, 2):
+                regs[f"norm_bwd {kind} aff{aff}"] = norm_kernel.kernel_attributes(True, dtype, vector, aff)
     for name, attrs in regs.items():
         if attrs["local_bytes"]:
             print(f"chip_smoke: {name} spills {attrs['local_bytes']} B/thread", file=sys.stderr)
@@ -600,6 +632,8 @@ def phase_build() -> dict:
           "wkv_bwd_spills": {n: a["local_bytes"] for n, a in regs.items() if n.startswith("wkv_bwd")},
           "wkv_fwd_spills": {n: a["local_bytes"] for n, a in regs.items()
                              if n.startswith(("wkv_states", "wkv_out")) and a["local_bytes"]},
+          "norm_spills": {n: a["local_bytes"] for n, a in regs.items()
+                          if n.startswith("norm_") and a["local_bytes"]},
           "nvcc_s": {n: lib.build_seconds for n, lib in libs.items()},
           "ir_regs_per_thread": {"stencil25": appspec.star3d_ir((32, 4, 8)).regs_per_thread,
                                  "lbm_d3q15": appspec.lbm_d3q15_ir((32, 4, 4)).regs_per_thread},
@@ -1744,6 +1778,31 @@ def phase_main_wkv() -> dict:
     return res
 
 
+def phase_main_norm() -> list[dict]:
+    """The norm kernels alone against the eager formula and PyTorch's
+    norms, in turns, at the benchmark cells' shapes, LayerNorm and RWKV6's
+    RMSNorm (``benchmarks/torch_norm_turns.py``); fails where y, dx or dw
+    misses ``tests/test_torch_norm.py``'s rule.  Returns the forward's and
+    the backward's results at OLMo-1B's shape."""
+    zero_counts()
+    t0 = time.perf_counter()
+    lines = norm_turns.measure()
+    main_s = time.perf_counter() - t0
+    launches = read_counts()
+    emit({"phase": "main", "path": "norm", "seconds": main_s, "launches": launches, "results": lines})
+    if not (launches["norm"] and launches["norm_bwd"]):
+        fail(f"the norm kernels never launched on their path: {launches}")
+    worst = {line["case"]: max(line[k] for k in ("y_reading", "dx_reading", "dw_reading") if line[k] is not None)
+             for line in lines}
+    if max(worst.values()) > 1.0:
+        fail(f"the norm kernels disagree with the eager formula: {worst}")
+    main = lines[0]
+    return [{"name": name, "shape": [main["rows"], main["d"]], "dtype": "bfloat16", "ms": main["ms"][f"kernel_{k}"],
+             "plain_ms": main["ms"][f"eager_{k}"], "bound_ms": main[f"{k}_bound_ms"], "bound_by": "bytes",
+             "library_ms": main["ms"][f"library_{k}"], "max_abs_err": main["max_abs_err"], "launches": launches[name]}
+            for name, k in (("norm", "fwd"), ("norm_bwd", "bwd"))]
+
+
 def scaled_ratio(a: torch.Tensor, b: torch.Tensor, rule: tuple[float, float]) -> float:
     """max |a - b| / (atol rms(b) + rtol |b|): ``rule`` in units of the
     scale of ``b`` (``WKV_SCALED_RULE``)."""
@@ -1899,11 +1958,12 @@ def phase_main_serve(path: str) -> dict:
         model_registry.LM._head = head
         launch_serve.build_model = build
         models.clear()
-    want = {name: calls if name == kernel_name else 0 for name in KERNELS}
+    want = {name: calls if name == kernel_name else 0 for name in mixers(KERNELS)}
     by_phase = res.pop("launches")
-    if launches != want or by_phase["prefill"][kernel_name] != calls:
-        fail(f"{path}: the prefill must launch {kernel_name} once per attention or WKV layer ({calls}) "
-             f"and nothing else: {launches}, by phase {by_phase}")
+    if (mixers(launches) != want or by_phase["prefill"][kernel_name] != calls or not launches["norm"]
+            or launches["norm_bwd"]):
+        fail(f"{path}: the prefill must launch {kernel_name} once per attention or WKV layer ({calls}), the "
+             f"norms their forward kernel, and nothing else: {launches}, by phase {by_phase}")
     if any(by_phase["decode"].values()):
         fail(f"{path}: the decode launched a kernel: {by_phase['decode']}")
     tokens = res.pop("tokens")
@@ -1931,9 +1991,10 @@ def phase_main_serve(path: str) -> dict:
         fail(f"{path}: {kernel_name} disagrees with its plain version on the model's inputs: {bad}")
     if frontend is not None:
         want = {name: cfg.n_layers if name == "flash_attention" else 0 for name in KERNELS}
+        want.update(norm_launches(cfg, train=False))
         if frontend["launches"] != want or not frontend["logits_finite"]:
             fail(f"{path}: the frontend forward must launch flash_attention once per layer "
-                 f"({cfg.n_layers}) and give finite logits: {frontend}")
+                 f"({cfg.n_layers}) and each norm's kernel once, and give finite logits: {frontend}")
         bad = {w: r for w, r in frontend["captured"].items() if not r["max_ratio"] <= 1.0}
         if bad:
             fail(f"{path}: flash_attention disagrees with its plain version in the frontend forward: {bad}")
@@ -2049,7 +2110,8 @@ def phase_train_olmo() -> dict:
         bad.append(f"step {TRAIN_RERUN_STEP} did not re-run to its loss: {reruns}")
     if len(steps) != TRAIN_STEPS + 1 or [e["step"] for e in steps][-1] != TRAIN_STEPS - 1:
         bad.append(f"the steps run: {[e['step'] for e in steps]}")
-    want = {n: {"flash_attention": 2 * layers, "flash_attention_bwd": layers}.get(n, 0) for n in KERNELS}
+    want = {n: {"flash_attention": 2 * layers, "flash_attention_bwd": layers,
+                **norm_launches(cfg, train=True)}.get(n, 0) for n in KERNELS}
     if any(c != want for c in per_step) or len(per_step) != len(steps):
         bad.append(f"each step must launch {want}: {per_step}")
     if "dout" not in captured:
@@ -2259,7 +2321,7 @@ def phase_train_rwkv() -> dict:
         bad.append("a loss or a gradient norm is not finite")
     if restarts or [e["step"] for e in steps] != list(range(RWKV_TRAIN_STEPS)):
         bad.append(f"the steps run: {[e['step'] for e in steps]}, restarts {restarts}")
-    want = {n: {"wkv": 2 * layers, "wkv_bwd": layers}.get(n, 0) for n in KERNELS}
+    want = {n: {"wkv": 2 * layers, "wkv_bwd": layers, **norm_launches(cfg, train=True)}.get(n, 0) for n in KERNELS}
     if any(c != want for c in per_step) or len(per_step) != len(steps):
         bad.append(f"each step must launch {want}: {per_step}")
     if "dout" not in captured:
@@ -2356,7 +2418,8 @@ def sharded_train(mesh, train_olmo: dict) -> dict:
         bad.append(f"the steps run: {[e['step'] for e in steps]}, restarts {restarts}")
     if len(olmo) != SHARDED_TRAIN_STEPS or not all(d <= SHARDED_LOSS_RTOL for d in res["loss_rel_diff"]):
         bad.append(f"the losses {losses} are not within {SHARDED_LOSS_RTOL} relative of train_olmo's {olmo}")
-    want = {n: {"flash_attention": 2 * layers, "flash_attention_bwd": layers}.get(n, 0) for n in KERNELS}
+    want = {n: {"flash_attention": 2 * layers, "flash_attention_bwd": layers,
+                **norm_launches(cfg, train=True)}.get(n, 0) for n in KERNELS}
     if any(c != want for c in per_step) or len(per_step) != len(steps):
         bad.append(f"each step must launch {want}: {per_step}")
     if bad:
@@ -2442,11 +2505,13 @@ def sharded_serve(mesh, serve_rwkv: dict) -> dict:
     emit(res)
     bad = []
     layers = {n: cfg.n_layers if n == kernel_name else 0 for n in KERNELS}
+    layers.update(norm_launches(cfg, train=False))
     for part in ("prefill", "cache_fill"):
         if launches[part] != layers:
-            bad.append(f"the {part} must launch {kernel_name} once per layer ({cfg.n_layers}): {launches[part]}")
-    if any(launches["decode"].values()):
-        bad.append(f"the decode launched a kernel: {launches['decode']}")
+            bad.append(f"the {part} must launch {kernel_name} once per layer ({cfg.n_layers}) and each norm's "
+                       f"kernel once: {launches[part]}")
+    if any(mixers(launches["decode"]).values()) or launches["decode"]["norm_bwd"]:
+        bad.append(f"the decode launched a kernel other than the norms' forward: {launches['decode']}")
     if not all(finite.values()):
         bad.append(f"logits are not finite: {finite}")
     if not res["tokens_equal_serve_rwkv"]:
@@ -2620,7 +2685,7 @@ def main() -> int:
     phase_probe(probe_libs)
     explored = phase_explore(phase_rank())
     audited = phase_audit(explored)
-    main_results += [phase_main_attention(), phase_main_wkv()]
+    main_results += [phase_main_attention(), phase_main_wkv(), *phase_main_norm()]
     served = {path: phase_main_serve(path) for path in SERVE}
     train = phase_train_olmo()
     trains = {"train_olmo": train, "train_rwkv": phase_train_rwkv()}

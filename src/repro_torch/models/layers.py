@@ -6,6 +6,12 @@ dtype and cast to the activations' dtype where they are used.  A parameter
 group ``p`` is any mapping of names to tensors (an ``nn.ParameterDict`` in
 the model).
 
+The norms (``layernorm``, ``rmsnorm``) run on the card as the port's norm
+kernel (``kernels.norm``, forward and backward in one pass each), with the
+eager formula's arithmetic; a CPU tensor, and a DTensor split over the
+normalised dim, take the eager formula itself.  Each call counts its rows
+in ``obs.metrics``' ``model.norm_rows{path=kernel|plain}``.
+
 Attention goes through the port's flash-attention kernel wherever it
 computes square causal attention from position 0: ``attention`` (the
 forward, no cache) and ``attention_block`` on an empty cache with more than
@@ -37,6 +43,8 @@ from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 from ..configs.base import ArchConfig
 from ..kernels.attention import flash_attention
+from ..kernels.norm import norm_cuda, norm_plain
+from ..obs import metrics as obs_metrics
 from ..obs.trace import MIXER_RANGE, span
 from .params import ParamDef
 from .shardctx import constrain, is_dtensor, kernel_placements, merge_heads, on_mesh, shard_local, unflatten
@@ -55,24 +63,46 @@ NEG_INF = -1e30
 
 
 def rmsnorm(x, weight=None, eps: float = 1e-6):
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    if weight is not None:
-        y = y * weight.float()
-    return y.to(x.dtype)
+    return _norm(x, weight, None, eps, rms=True)
 
 
 def layernorm(x, weight=None, bias=None, eps: float = 1e-5):
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    if weight is not None:
-        y = y * weight.float()
-    if bias is not None:
-        y = y + bias.float()
-    return y.to(x.dtype)
+    return _norm(x, weight, bias, eps, rms=False)
+
+
+def _on_card(x) -> bool:
+    return x.device.type == "cuda"
+
+
+def _whole_rows(placements, mesh_shape, ndim: int) -> bool:
+    """Whether every device holds whole rows of a DTensor of ``ndim`` dims
+    with ``placements`` on a mesh of ``mesh_shape``: each placement
+    replicated, or split over another dim than the last or over a mesh dim
+    of one device."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return all(isinstance(p, Replicate) or (isinstance(p, Shard) and (p.dim % ndim != ndim - 1 or n == 1))
+               for p, n in zip(placements, mesh_shape))
+
+
+def _norm(x, weight, bias, eps: float, rms: bool):
+    """The norm of x over its last dim: on the card through the norm kernel
+    (a DTensor on its local shards, where each device holds whole rows), else
+    the eager formula (a CPU tensor; a DTensor split over the normalised dim,
+    which needs the reduction across its shards).  Counts its rows in
+    ``obs.metrics``' ``model.norm_rows``, by path."""
+    kernel = _on_card(x) and (not is_dtensor(x) or _whole_rows(x.placements, x.device_mesh.shape, x.ndim))
+    obs_metrics.counter("model.norm_rows", path="kernel" if kernel else "plain").inc(x.numel() // x.shape[-1])
+    if not kernel:
+        return norm_plain(x, weight, bias, eps, rms)
+    fn = functools.partial(norm_cuda, eps=eps, rms=rms)
+    if not is_dtensor(x):
+        return fn(x, weight, bias)
+    from torch.distributed.tensor import Replicate
+
+    rows, whole = list(x.placements), [Replicate()] * x.device_mesh.ndim
+    params = tuple(None if t is None else whole for t in (weight, bias))
+    return shard_local(fn, (x, weight, bias), (rows, *params), rows)
 
 
 def norm_defs(cfg: ArchConfig) -> dict:

@@ -5,13 +5,14 @@
   ``benchmarks/torch_step_time_check.py``,
   ``benchmarks/torch_flash_bwd_turns.py``,
   ``benchmarks/torch_flash_bwd_drift.py``,
-  ``benchmarks/torch_simulate_check.py`` or
-  ``benchmarks/torch_span_profile.py`` loads no ``jax`` and nothing of
+  ``benchmarks/torch_simulate_check.py``,
+  ``benchmarks/torch_span_profile.py`` or
+  ``benchmarks/torch_norm_turns.py`` loads no ``jax`` and nothing of
   ``repro`` (checked in a fresh interpreter), and neither does a cell of
   the dry run.
 * Without CUDA, the state-creating functions raise unless asked for the CPU,
-  ``chip_smoke.py``, the rank check, the step-time check and the span
-  profile exit non-zero and print no result, and the CPU path
+  ``chip_smoke.py``, the rank check, the step-time check, the span
+  profile and the norm turns exit non-zero and print no result, and the CPU path
   leaves the kernels' launch counters alone.
 """
 from __future__ import annotations
@@ -98,7 +99,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
 
 @pytest.mark.parametrize("script", ["torch_rank_check", "torch_ranking_host", "torch_step_time_check",
                                     "torch_flash_bwd_turns", "torch_flash_bwd_drift", "torch_simulate_check",
-                                    "torch_span_profile"])
+                                    "torch_span_profile", "torch_norm_turns"])
 def test_paper_path_benchmarks_import_no_jax_and_no_repro(script):
     """``benchmarks/<script>.py``, imported alone."""
     probe = (f"import json, sys; sys.path.insert(0, 'benchmarks'); import {script}; "
@@ -154,6 +155,18 @@ def test_span_profile_fails_without_cuda(tmp_path):
     out = subprocess.run(
         [sys.executable, str(ROOT / "benchmarks" / "torch_span_profile.py"), "--workload", "olmo-1b.train_2k",
          "--seed", "1", "--seconds", "1", "--out", str(out_file)],
+        env=_env(), cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0 and out.stdout == ""
+    assert not out_file.exists()
+
+
+def test_norm_turns_fail_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the norm turns would run")
+    out_file = tmp_path / "out.jsonl"
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "benchmarks" / "torch_norm_turns.py"), "--out", str(out_file)],
         env=_env(), cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode != 0 and out.stdout == ""
